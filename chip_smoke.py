@@ -5,17 +5,26 @@
 1. Prints the card's name and power limit, turns TF32 off.
 2. Builds the kernels from ``qinco_torch/csrc`` and prints the seconds.
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card at the main path's shapes (qinco2-S at N=1024 vectors: a normal
+   card at the main paths' shapes (qinco2-S at N=1024 vectors: a normal
    step and the IVF first step) and at the qinco2-M widths (in/out
    projections, L=4), with the tolerances of ``tests/test_torch_cuda.py``;
    one JSON line per kernel and shape with the median ms from CUDA
-   events, the plain version's ms and the bound.
-4. Encode/decode phase at qinco2-S, ``encode_profile=parity``, without and
-   with the IVF step 0 (ivf_K = 2^20), random weights and data from
-   ``--seed`` (the data: decodes of random codes plus noise), through
-   ``encode_chunked`` (batch 1024) over ``--n`` vectors, then ``decode``.
-   Checks the kernels' launch counts (one each per MLP step and chunk),
-   encode xhat against decode(codes), and the parity MSE and codes
+   events, the plain version's ms and the bound:
+   - selected scores with the in-kernel top-A (parity profile) and with
+     external vals (the f32 folded table of ``pallas=true``, the bf16
+     lean table of ``fused_topa=false``); select-rebuild;
+   - fused-substep scores (speed profile);
+   - candidate scores at K=1024 (unpacked) and at K=256 with a low-rank
+     concat factor (packed), and select-rebuild with that factor.
+4. Path phase at qinco2-S, random weights and data from ``--seed`` (the
+   data: decodes of random codes plus noise of std ``NOISE``, or
+   ``SPEED_NOISE`` for the speed profile), through ``encode_chunked``
+   (batch 1024) over ``--n`` vectors, then ``decode``: the parity and the
+   speed profile without and with the IVF step 0 (ivf_K = 2^20),
+   ``pallas=true`` (f32) and the parity profile at K=1024.  Each checks
+   the kernels' launch counts exactly (one launch of its scoring kernel
+   and, with packed ids, of select-rebuild per MLP step and chunk, none of
+   the others), encode xhat against decode(codes), and its MSE and codes
    against ``encode_profile=exact`` on a 1024-vector subset.  Prints
    encode vectors per second (one ``encode_chunked`` over all vectors),
    decode vectors per second (the median of ``DECODE_WINDOWS`` windows of
@@ -54,12 +63,25 @@ PEAK_BYTES = 3.35e12
 # from the host, so one window's rate follows the host's load; the metric
 # is the median window.
 DECODE_WINDOWS, DECODE_REPS = 9, 10
+# Rank of the low-rank concat factor in the candidate-route checks.
+CONCAT_RANK = 64
+# Std of the noise added to the data's exact decodes (synthetic_data):
+# NOISE for the paths with an exact per-step selection, SPEED_NOISE for the
+# speed profile's binned selection, whose loss at NOISE, where each vector
+# sits at its exact code's noise floor, exceeds the 1.05x bound in the JAX
+# package as in the port (PERF.md, section 6).
+NOISE, SPEED_NOISE = 0.05, 0.5
 
+# kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
     "selected_scores": ("qinco_torch/csrc/selected_scores.cu",
                         "qinco_tpu/ops/pallas_kernels.py:880"),
     "select_rebuild": ("qinco_torch/csrc/select_rebuild.cu",
                        "qinco_tpu/ops/pallas_kernels.py:1211"),
+    "fused_substep_scores": ("qinco_torch/csrc/fused_substep_scores.cu",
+                             "qinco_tpu/ops/pallas_kernels.py:483"),
+    "candidate_scores": ("qinco_torch/csrc/candidate_scores.cu",
+                         "qinco_tpu/ops/pallas_kernels.py:1019"),
 }
 
 
@@ -93,30 +115,88 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def selected_work(spec, N, F_in, A, esize):
+def _dims(spec):
+    return spec.D, spec.K, spec.De, spec.dh, spec.L
+
+
+def _ffn_flops(spec, blocks):
+    return blocks * 2 * (2 * spec.De * spec.dh)
+
+
+def _ffn_bytes(spec, esize):
+    D, K, De, Dh, L = _dims(spec)
+    return 2 * L * De * Dh * esize + (De * D * esize if De != D else 0)
+
+
+def selected_work(spec, N, F_in, A, esize, external=False):
     """FLOPs and bytes of the selected-scores function at these shapes:
-    substep distances over K, the condition product, and per slot the
-    lean fetch times wfold, the FFN blocks, out_proj and the distance.
-    Bytes: x, xh and the packed output once, the step's weights once."""
-    D, K, De, Dh, L = spec.D, spec.K, spec.De, spec.dh, spec.L
+    the substep distances over K (in-kernel top-A only), the condition
+    product, and per slot the lean fetch times wfold (``spec.fast``; the
+    folded table fetches that column), the FFN blocks, out_proj and the
+    distance.  Bytes: x, xh, the packed external vals and the packed output
+    once, the step's weights (and the table) once."""
+    D, K, De, Dh, L = _dims(spec)
     NF = N * F_in
-    per_slot = 2 * D * De + L * 2 * (2 * De * Dh) + (2 * De * D if De != D else 0) + 3 * D
-    flops = NF * (2 * K * D + 2 * D * De + A * per_slot)
-    weights = K * D * (4 + esize) + 2 * D * De * esize + 2 * L * De * Dh * esize + (
-        De * D * esize if De != D else 0)
+    per_slot = (2 * D * De if spec.fast else 0) + _ffn_flops(spec, L) + (
+        2 * De * D if De != D else 0) + 3 * D
+    flops = NF * ((0 if external else 2 * K * D) + 2 * D * De + A * per_slot)
+    table = K * (D if spec.fast else D + De) * esize
+    weights = (0 if external else K * D * 4) + table + D * De * esize * (2 if spec.fast else 1)
+    nbytes = 4 * (N * D + NF * D + NF * A * (2 if external else 1)) + weights + _ffn_bytes(
+        spec, esize)
+    return flops, nbytes
+
+
+def fused_work(spec, N, F_in, A, esize):
+    """FLOPs and bytes of the fused-substep function (fold_up table):
+    substep distances over K, per row the condition product and its
+    product with the first up-projection, per slot the rest of FFN block 0,
+    blocks 1..L-1, out_proj and the distance.  Bytes: x, xh and the packed
+    output once; the substep codebook, the (K, D + De + Dh) table and the
+    weights once."""
+    D, K, De, Dh, L = _dims(spec)
+    NF = N * F_in
+    per_slot = 2 * Dh * De + _ffn_flops(spec, L - 1) + (2 * De * D if De != D else 0) + 3 * D
+    flops = NF * (2 * K * D + 2 * D * De + 2 * De * Dh + A * per_slot)
+    weights = K * D * 4 + K * (D + De + Dh) * esize + D * De * esize + _ffn_bytes(spec, esize)
     nbytes = 4 * (N * D + NF * D + NF * A) + weights
     return flops, nbytes
 
 
-def rebuild_work(spec, N, F_in, A, F_out, esize):
+def _chain_flops(spec, rank):
+    """FLOPs of the unfolded step MLP for one pair (_mlp_chain)."""
+    D, K, De, Dh, L = _dims(spec)
+    concat = 2 * (De + D) * (rank or De) + (2 * rank * De if rank else 0)
+    return (2 * D * De if De != D else 0) * 2 + concat + _ffn_flops(spec, L)
+
+
+def _chain_bytes(spec, rank, esize):
+    D, K, De, Dh, L = _dims(spec)
+    concat = (De + D) * (rank or De) * esize + (rank * De * esize if rank else 0)
+    return concat + _ffn_bytes(spec, esize) + (D * De * esize if De != D else 0)
+
+
+def candidate_work(spec, NF, A, esize, rank):
+    """FLOPs and bytes of candidate scores for NF rows of A ids: the
+    condition half of the concat product, rnd(xh)·W2, once per row (it is
+    the same for a row's A ids), the rest of the unfolded MLP and the
+    distance per pair.  Bytes: x, xh, the ids and the output once, the dt
+    codebook and the weights once."""
+    D, K = spec.D, spec.K
+    cond = 2 * D * (rank or spec.De)
+    flops = NF * (cond + A * (_chain_flops(spec, rank) - cond + 3 * D))
+    nbytes = 4 * (2 * NF * D + 2 * NF * A) + K * D * esize + _chain_bytes(spec, rank, esize)
+    return flops, nbytes
+
+
+def rebuild_work(spec, N, F_in, A, F_out, esize, rank=None):
     """FLOPs and bytes of select-rebuild: the MLP for N·F_out pairs (the
     selection's compares are not counted).  Bytes: dists, xh, the f32
     codebook and weights read once, xhat, codes and parents written once."""
-    D, K, De, Dh, L = spec.D, spec.K, spec.De, spec.dh, spec.L
-    pair = 2 * (De + D) * De + L * 2 * (2 * De * Dh) + (2 * 2 * D * De if De != D else 0)
-    flops = N * F_out * pair
-    weights = (De + D) * De * esize + 2 * L * De * Dh * esize + (2 * D * De * esize if De != D else 0)
-    nbytes = 4 * (N * F_in * A + N * F_in * D + K * D) + weights + 4 * N * F_out * (D + 2)
+    D, K = spec.D, spec.K
+    flops = N * F_out * _chain_flops(spec, rank)
+    nbytes = 4 * (N * F_in * A + N * F_in * D + K * D) + _chain_bytes(spec, rank, esize) + (
+        4 * N * F_out * (D + 2))
     return flops, nbytes
 
 
@@ -144,68 +224,154 @@ def random_model(spec, seed: int, device):
     return QincoParams(codebook0, steps, p.data_mean, p.data_std)
 
 
-def synthetic_data(spec, params, n: int, seed: int) -> np.ndarray:
+def synthetic_data(spec, params, n: int, seed: int, noise: float) -> np.ndarray:
     """``n`` raw-space vectors on the host: the exact decode of random codes
-    plus Gaussian noise (std 0.05), so that each vector lies near a code
-    and the quantization error is small against the vectors' norm."""
+    plus Gaussian noise of std ``noise`` per dimension (the decodes spread
+    by about 1.15 per dimension).  At 0.05 (``NOISE``) each vector lies at
+    the noise floor of its exact code, where any pre-selection's loss shows
+    at full weight; at 0.5 (``SPEED_NOISE``) the exact encode's relative
+    error is 6-8% at D=32 and 64."""
     device = params.codebook0.device
     g = torch.Generator(device=device).manual_seed(seed + 2)
     codes = torch.stack([torch.randint(0, k, (n,), generator=g, device=device)
                          for k in spec.K_vals])
     x = decode_raw(params, spec.with_(compute_dtype="float32"), codes)
-    x = x + 0.05 * torch.randn(x.shape, generator=g, device=device)
+    x = x + noise * torch.randn(x.shape, generator=g, device=device)
     return x.cpu().numpy()
 
 
-def check_kernels(spec_name, spec, N, F_in, A, seed, device):
-    """Each kernel against its plain version at one shape; one JSON line each."""
-    esize = 2 if spec.compute_dtype == "bfloat16" else 4
+def _unpacked(v):
+    return (v.view(torch.int32) & ~0xFF).view(torch.float32)
+
+
+def compare_scores(label, got, want, dtype) -> float:
+    """Packed scores: ids agree on >= 99.5% (f32) / 98% (bf16) of slots,
+    and where they agree the distances within rtol 1e-4 / 1e-2."""
+    same = kernels.unpack_ids(got) == kernels.unpack_ids(want)
+    agree = same.float().mean().item()
+    need = 0.995 if dtype == "float32" else 0.98
+    check(agree >= need, f"{label}: ids agree on {agree:.4f} < {need}")
+    dg, dw = _unpacked(got)[same], _unpacked(want)[same]
+    torch.testing.assert_close(dg, dw, rtol=1e-4 if dtype == "float32" else 1e-2, atol=1e-4)
+    return (dg - dw).abs().max().item()
+
+
+def kernel_check(name, label, spec, run, plain, compare, work, **info) -> dict:
+    """One kernel against its plain version at one shape: the comparison,
+    the kernel's and the plain version's median ms, the bound; one JSON
+    line."""
+    got, want = run(), plain()
+    err = compare(got, want)
+    flops, nbytes = work
+    b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
+    res = dict(name=name, shape=label, **info, max_abs_err=err, ms=time_ms(run),
+               plain_ms=time_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    emit({"kernel_check": res})
+    return res
+
+
+def step_inputs(spec, N, F_in, seed, device):
     p = random_model(spec.with_(ivf_K=0), seed, device).step(0)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     x = torch.randn((N, spec.D), generator=g, device=device)
     xh = x.repeat_interleave(F_in, 0) + 0.7 * torch.randn((N * F_in, spec.D), generator=g,
                                                            device=device)
-    results = {}
+    return p, x, xh
 
-    got = kernels.selected_scores(spec, x, xh, p, A)
-    want = kernels.selected_scores_plain(spec, x, xh, p, A)
-    same = kernels.unpack_ids(got) == kernels.unpack_ids(want)
-    agree = same.float().mean().item()
-    unpack = lambda v: (v.view(torch.int32) & ~0xFF).view(torch.float32)
-    dg, dw = unpack(got)[same], unpack(want)[same]
-    err = (dg - dw).abs().max().item()
-    check(agree >= 0.98, f"selected_scores {spec_name}: ids agree on {agree:.4f} < 0.98")
-    torch.testing.assert_close(dg, dw, rtol=1e-2, atol=1e-4)
-    flops, nbytes = selected_work(spec, N, F_in, A, esize)
-    b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
-    results["selected_scores"] = dict(
-        name="selected_scores", shape=spec_name, N=N, F_in=F_in, A=A, ids_agree=agree,
-        max_abs_err=err,
-        ms=time_ms(lambda: kernels.selected_scores(spec, x, xh, p, A)),
-        plain_ms=time_ms(lambda: kernels.selected_scores_plain(spec, x, xh, p, A), reps=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
-    dists = want.reshape(N, F_in * A)
+def check_rebuild(label, spec, p, dists, xh, A, F_in) -> dict:
+    N = dists.shape[0]
     F_out = min(spec.B, F_in * A)
-    xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, A, F_out)
-    xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, A, F_out)
-    check(torch.equal(codes, codes_p) and torch.equal(parents, parents_p),
-          f"select_rebuild {spec_name}: codes or parents differ from the plain version")
-    e = (xhat - xhat_p).abs()
-    check(e.max() <= 5e-2 and e.mean() <= 1e-3,
-          f"select_rebuild {spec_name}: xhat max err {e.max()}, mean {e.mean()}")
-    flops, nbytes = rebuild_work(spec, N, F_in, A, F_out, esize)
-    b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
-    results["select_rebuild"] = dict(
-        name="select_rebuild", shape=spec_name, N=N, F_in=F_in, A=A, F_out=F_out,
-        max_abs_err=e.max().item(),
-        ms=time_ms(lambda: kernels.select_rebuild(spec, dists, xh, p, A, F_out)),
-        plain_ms=time_ms(lambda: kernels.select_rebuild_plain(spec, dists, xh, p, A, F_out),
-                         reps=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9, mbytes=nbytes / 1e6)
-    for r in results.values():
-        emit({"kernel_check": r})
-    return results
+    esize = 2 if spec.compute_dtype == "bfloat16" else 4
+
+    def compare(got, want):
+        (xhat, codes, parents), (xhat_p, codes_p, parents_p) = got, want
+        check(torch.equal(codes, codes_p) and torch.equal(parents, parents_p),
+              f"select_rebuild {label}: codes or parents differ from the plain version")
+        e = (xhat - xhat_p).abs()
+        check(e.max() <= 5e-2 and e.mean() <= 1e-3,
+              f"select_rebuild {label}: xhat max err {e.max()}, mean {e.mean()}")
+        return e.max().item()
+
+    return kernel_check(
+        "select_rebuild", label, spec,
+        lambda: kernels.select_rebuild(spec, dists, xh, p, A, F_out),
+        lambda: kernels.select_rebuild_plain(spec, dists, xh, p, A, F_out), compare,
+        rebuild_work(spec, N, F_in, A, F_out, esize, spec.concat_rank), N=N, F_in=F_in, A=A,
+        F_out=F_out)
+
+
+def check_selected(label, spec, N, F_in, A, seed, device, external=False) -> dict:
+    """Selected scores (and, for the in-kernel route, select-rebuild on its
+    output) at one shape; external=True feeds the packed exact top-A of the
+    f32 substep distances (the external-vals route)."""
+    esize = 2 if spec.compute_dtype == "bfloat16" else 4
+    p, x, xh = step_inputs(spec, N, F_in, seed, device)
+    vals = None
+    if external:
+        r = x.repeat_interleave(F_in, 0) - xh
+        sub = p.sub_codebook
+        ids = torch.arange(spec.K, device=device)[None, :]
+        packed = kernels.pack_ids_f32((sub * sub).sum(1) - 2.0 * (r @ sub.T), ids)
+        vals = torch.sort(packed, dim=1, stable=True).values[:, :A].contiguous()
+    res = {"selected_scores": kernel_check(
+        "selected_scores", label, spec,
+        lambda: kernels.selected_scores(spec, x, xh, p, A, vals=vals),
+        lambda: kernels.selected_scores_plain(spec, x, xh, p, A, vals=vals),
+        lambda got, want: compare_scores(f"selected_scores {label}", got, want,
+                                         spec.compute_dtype),
+        selected_work(spec, N, F_in, A, esize, external), N=N, F_in=F_in, A=A,
+        route="external vals" if external else "in-kernel top-A",
+        table="lean" if spec.fast else "folded")}
+    if not external:
+        dists = kernels.selected_scores_plain(spec, x, xh, p, A).reshape(N, F_in * A)
+        res["select_rebuild"] = check_rebuild(label, spec, p, dists, xh, A, F_in)
+    return res
+
+
+def check_fused(label, spec, N, F_in, A, seed, device) -> dict:
+    esize = 2 if spec.compute_dtype == "bfloat16" else 4
+    p, x, xh = step_inputs(spec, N, F_in, seed, device)
+    return kernel_check(
+        "fused_substep_scores", label, spec,
+        lambda: kernels.fused_substep_scores(spec, x, xh, p, A),
+        lambda: kernels.fused_substep_scores_plain(spec, x, xh, p, A),
+        lambda got, want: compare_scores(f"fused_substep_scores {label}", got, want,
+                                         spec.compute_dtype),
+        fused_work(spec, N, F_in, A, esize), N=N, F_in=F_in, A=A)
+
+
+def check_candidate(label, spec, N, F_in, A, seed, device) -> dict:
+    """Candidate scores for random ids (packed for K <= 256); with a
+    low-rank factor, select-rebuild on the packed output too."""
+    esize = 2 if spec.compute_dtype == "bfloat16" else 4
+    p, x, xh = step_inputs(spec, N, F_in, seed, device)
+    x_f = x.repeat_interleave(F_in, 0)
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    idx = torch.randint(0, spec.K, (N * F_in, A), generator=g, device=device, dtype=torch.int32)
+    pack = spec.K <= 256
+    rtol = 1e-4 if spec.compute_dtype == "float32" else 1e-2
+
+    def compare(got, want):
+        if pack:
+            check(torch.equal(kernels.unpack_ids(got), idx),
+                  f"candidate_scores {label}: packed ids are not the given ids")
+            got, want = _unpacked(got), _unpacked(want)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-4)
+        return (got - want).abs().max().item()
+
+    res = {"candidate_scores": kernel_check(
+        "candidate_scores", label, spec,
+        lambda: kernels.candidate_scores(spec, x_f, xh, idx, p, pack_ids=pack),
+        lambda: kernels.candidate_scores_plain(spec, x_f, xh, idx, p, pack_ids=pack), compare,
+        candidate_work(spec, N * F_in, A, esize, spec.concat_rank), N=N, F_in=F_in, A=A,
+        K=spec.K, packed=pack, concat_rank=spec.concat_rank)}
+    if pack:
+        dists = kernels.candidate_scores_plain(spec, x_f, xh, idx, p, pack_ids=True)
+        res["select_rebuild"] = check_rebuild(label, spec, p, dists.reshape(N, F_in * A), xh,
+                                              A, F_in)
+    return res
 
 
 def device_breakdown(fn) -> dict:
@@ -230,9 +396,11 @@ def device_breakdown(fn) -> dict:
                 top=[[name[:80], ms, n] for name, (ms, n) in top])
 
 
-def run_path(label, spec, params, x_raw, batch, device):
-    """The main path: encode_chunked then decode, with the launch counts
-    read around it; then its checks against decode and the exact profile."""
+def run_path(label, spec, params, x_raw, batch, device, scorer, noise, mse_bound, min_agree):
+    """A main path: encode_chunked then decode, with the launch counts read
+    around it; then its checks against decode and the exact profile.
+    ``scorer`` is the scoring kernel of every MLP step; select-rebuild
+    follows it where the ids are packed (K <= 256)."""
     n = len(x_raw)
     encode_chunked(params, spec, x_raw[:batch], batch=batch)  # warm-up chunk
     torch.cuda.synchronize()
@@ -254,10 +422,10 @@ def run_path(label, spec, params, x_raw, batch, device):
         decode_rates.append(n * DECODE_REPS / (time.perf_counter() - t2))
     launches = dict(kernels.LAUNCHES)
 
-    chunks = -(-n // batch)
-    want = spec.n_mlp_steps * chunks
-    check(launches == {"selected_scores": want, "select_rebuild": want},
-          f"{label}: launches {launches}, expected {want} each")
+    per_step = spec.n_mlp_steps * -(-n // batch)
+    used = {scorer} | ({"select_rebuild"} if spec.K <= 256 else set())
+    want = {k: per_step if k in used else 0 for k in kernels.LAUNCHES}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
     check(codes.shape == (spec.M_ivf, n) and codes.min() >= 0, f"{label}: bad codes")
     check(bool(torch.isfinite(xdec).all()), f"{label}: decode is not finite")
 
@@ -272,25 +440,27 @@ def run_path(label, spec, params, x_raw, batch, device):
     rel = (((xhat_e - xhat_dec) ** 2).mean() / (xhat_dec ** 2).mean()).item()
     check(rel <= 1e-4, f"{label}: encode xhat vs decode relative MSE {rel}")
 
-    # the parity profile against the exact (f32, plain) profile
+    # the profile against the exact (f32, plain) profile
     spec_x = spec.with_(pallas=False, fast=False, compute_dtype="float32")
     codes_x, _, _ = encode(params, spec_x, x_n)
     mse = lambda c: ((x_sub - decode_raw(params, spec, c)) ** 2).sum(-1).mean().item()
     mse_x = ((x_sub - decode_raw(params, spec_x, codes_x)) ** 2).sum(-1).mean().item()
     mse_p = mse(codes_e)
     agree = (codes_e == codes_x).float().mean().item()
-    check(mse_p <= 1.01 * mse_x, f"{label}: parity MSE {mse_p} > 1.01 x exact {mse_x}")
-    check(agree >= 0.9, f"{label}: parity/exact code agreement {agree}")
+    check(mse_p <= mse_bound * mse_x, f"{label}: MSE {mse_p} > {mse_bound} x exact {mse_x}")
+    check(min_agree is None or agree >= min_agree,
+          f"{label}: code agreement with exact {agree} < {min_agree}")
 
     # where one chunk's and one decode's time goes (the counts are read above already)
     chunk = x_raw[:batch]
     breakdown = device_breakdown(lambda: encode_chunked(params, spec, chunk, batch=batch))
     decode_breakdown = device_breakdown(lambda: decode_raw(params, spec, codes_d))
-    res = dict(path=label, n=n, batch=batch, launches=launches, breakdown=breakdown,
+    res = dict(path=label, n=n, batch=batch, noise=noise, launches=launches, breakdown=breakdown,
                decode_breakdown=decode_breakdown,
                encode_vec_s=n / (t1 - t0), decode_vec_s=statistics.median(decode_rates),
-               decode_window_vec_s=decode_rates, encode_s=t1 - t0, mse_parity=mse_p, mse_exact=mse_x,
-               code_agreement=agree, xhat_vs_decode_rel_mse=rel)
+               decode_window_vec_s=decode_rates, encode_s=t1 - t0, mse_profile=mse_p,
+               mse_exact=mse_x, mse_ratio=mse_p / mse_x, code_agreement=agree,
+               xhat_vs_decode_rel_mse=rel)
     emit({"path": res})
     return res
 
@@ -317,34 +487,68 @@ def main() -> None:
         name: re.findall(r"Used \d+ registers|\d+ bytes spill stores", log)
         for name, log in reports.items()}})
 
-    def spec_of(preset, *extra):
-        return spec_from_cfg(load_config([f"model_args={preset}", "encode_profile=parity",
-                                          *extra]), D=128)
+    def spec_of(preset, *extra, profile="parity"):
+        overrides = [f"model_args={preset}", *extra]
+        if profile:
+            overrides.append(f"encode_profile={profile}")
+        return spec_from_cfg(load_config(overrides), D=128)
 
-    spec_s, spec_m = spec_of("qinco2-S"), spec_of("qinco2-M")
-    N = 1024
-    s_step = check_kernels("qinco2-S", spec_s, N, spec_s.B, spec_s.A, args.seed, device)
-    check_kernels("qinco2-S IVF first step", spec_s, N, 1, max(spec_s.B, spec_s.A),
-                  args.seed, device)
-    check_kernels("qinco2-M", spec_m, N, spec_m.B, spec_m.A, args.seed, device)
+    N, seed = 1024, args.seed
+    s, m = spec_of("qinco2-S"), spec_of("qinco2-M")
+    speed_s, speed_m = spec_of("qinco2-S", profile="speed"), spec_of("qinco2-M", profile="speed")
+    main_shape = {}  # kernel -> its check at its main path's shape, for the summary line
 
+    res = check_selected("qinco2-S", s, N, s.B, s.A, seed, device)
+    main_shape.update(res)
+    check_selected("qinco2-S IVF first step", s, N, 1, max(s.B, s.A), seed, device)
+    check_selected("qinco2-M", m, N, m.B, m.A, seed, device)
+    main_shape["fused_substep_scores"] = check_fused(
+        "qinco2-S speed", speed_s, N, s.B, s.A, seed, device)
+    check_fused("qinco2-S speed IVF first step", speed_s, N, 1, max(s.B, s.A), seed, device)
+    check_fused("qinco2-M speed", speed_m, N, m.B, m.A, seed, device)
+    check_selected("qinco2-S pallas=true (f32, folded table)",
+                   spec_of("qinco2-S", "pallas=true", profile=None), N, s.B, s.A, seed, device,
+                   external=True)
+    check_selected("qinco2-S parity fused_topa=false (bf16, lean table)",
+                   spec_of("qinco2-S", "fused_topa=false"), N, s.B, s.A, seed, device,
+                   external=True)
+    main_shape["candidate_scores"] = check_candidate(
+        "qinco2-S widths K=1024", spec_of("qinco2-S", "K=1024"), N, s.B, s.A, seed,
+        device)["candidate_scores"]
+    check_candidate(f"qinco2-S concat_rank={CONCAT_RANK}", s.with_(concat_rank=CONCAT_RANK),
+                    N, s.B, s.A, seed, device)
+
+    # (label, spec, scoring kernel, data noise, MSE bound and least code
+    # agreement vs exact)
+    paths = [
+        ("qinco2-S", s, "selected_scores", NOISE, 1.01, 0.9),
+        ("qinco2-S IVF 2^20", spec_of("qinco2-S", "ivf_in_use=true"), "selected_scores", NOISE,
+         1.01, 0.9),
+        ("qinco2-S speed", speed_s, "fused_substep_scores", SPEED_NOISE, 1.05, None),
+        ("qinco2-S speed IVF 2^20", spec_of("qinco2-S", "ivf_in_use=true", profile="speed"),
+         "fused_substep_scores", SPEED_NOISE, 1.05, None),
+        ("qinco2-S pallas=true", spec_of("qinco2-S", "pallas=true", profile=None),
+         "selected_scores", NOISE, 1.01, 0.95),
+        ("qinco2-S K=1024", spec_of("qinco2-S", "K=1024"), "candidate_scores", NOISE, 1.01,
+         0.9),
+    ]
     launches = {k: 0 for k in kernels.LAUNCHES}
-    for label, extra in (("qinco2-S", ()), ("qinco2-S IVF 2^20", ("ivf_in_use=true",))):
-        spec = spec_of("qinco2-S", *extra)
-        params = random_model(spec, args.seed, device)
-        x_raw = synthetic_data(spec, params, args.n, args.seed)
-        res = run_path(label, spec, params, x_raw, N, device)
+    for label, spec, scorer, noise, mse_bound, min_agree in paths:
+        params = random_model(spec, seed, device)
+        x_raw = synthetic_data(spec, params, args.n, seed, noise)
+        res = run_path(label, spec, params, x_raw, N, device, scorer, noise, mse_bound,
+                       min_agree)
         for k, v in res["launches"].items():
             launches[k] += v
         del params
         torch.cuda.empty_cache()
 
     emit({"kernels": [
-        dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
-             launches=launches[k], max_abs_err=s_step[k]["max_abs_err"], ms=s_step[k]["ms"],
-             plain_ms=s_step[k]["plain_ms"], bound_ms=s_step[k]["bound_ms"],
-             bound_by=s_step[k]["bound_by"], library_ms=None)
-        for k in ("selected_scores", "select_rebuild")]})
+        dict(name=k, route="cuda", source=src, replaces=replaces, launches=launches[k],
+             max_abs_err=main_shape[k]["max_abs_err"], ms=main_shape[k]["ms"],
+             plain_ms=main_shape[k]["plain_ms"], bound_ms=main_shape[k]["bound_ms"],
+             bound_by=main_shape[k]["bound_by"], library_ms=None)
+        for k, (src, replaces) in SOURCES.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -19,7 +19,7 @@ _CONFIG_DIR = Path(__file__).parent / "configs"
 # Encode-profile bundles; explicit overrides still win over a bundle.
 #   exact  — f32 plain path (the default.yaml state)
 #   parity — in-kernel exact top-A + fused select/rebuild, bf16 MLP
-#   speed  — binned per-bin kernel (not ported yet: raises at encode)
+#   speed  — binned-argmin kernel (perbin has no effect on the card)
 ENCODE_PROFILES = {
     "exact": {},
     "parity": dict(pallas=True, fast_encode=True,

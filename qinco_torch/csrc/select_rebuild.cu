@@ -11,8 +11,9 @@
 //   then for each selected (code, parent), with f32 gathers:
 //     xhat = MLP(codebook[code] | xh[parent]) + codebook[code] + xh[parent]
 //   through the unfolded step MLP (_mlp_chain, :56): in_proj, the concat
-//   layer, L FFN blocks, out_proj, inputs rounded to the compute dtype,
-//   f32 accumulation.  Outputs are vector-major and ascending.
+//   layer (and its QINCo-LR low-rank factor), L FFN blocks, out_proj,
+//   inputs rounded to the compute dtype, f32 accumulation.  Outputs are
+//   vector-major and ascending.
 //
 // What bounds it on the card: at qinco2-S a vector moves about 35 KB
 // (its 512 distances, its 32 beam rows and its 32 output rows) against
@@ -24,8 +25,9 @@
 // What the design does about it, in this first version: a block owns 8
 // vectors, one warp each for the selection (a lane scan plus a warp
 // reduction on (value, position) per round), and runs the rebuild MLP on
-// the CUDA cores over tiles of TM (vector, beam) pairs in shared memory.
-// The gathers are plain indexed loads; nothing but the outputs is written.
+// the CUDA cores over tiles of TM (vector, beam) pairs in shared memory
+// (mlp_chain_tile, shared with the candidate-scores kernel).  The gathers
+// are plain indexed loads; nothing but the outputs is written.
 #include "common.cuh"
 
 namespace qt {
@@ -36,24 +38,18 @@ struct RebuildArgs {
   const float* dists;     // (N, C) packed
   const float* xh;        // (N * F_in, D)
   const float* codebook;  // (K, D) f32
-  const void* in_proj;    // (D, De) or null
-  const void* concat_w;   // (De + D, De)
-  const float* concat_b;  // (De,)
-  const void* ffn_up;     // (L, De, Dh)
-  const void* ffn_down;   // (L, Dh, De)
-  const void* out_proj;   // (De, D) or null
+  ChainWeights w;
   float* xhat;            // (N, F_out, D)
   int* codes;             // (N, F_out)
   int* parents;           // (N, F_out)
-  int N, C, A_eff, F_in, F_out, D, K, De, Dh, L, res;
+  int N, C, A_eff, F_in, F_out, K, res;
 };
 
 template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads) select_rebuild_kernel(RebuildArgs g) {
-  using WT = typename WeightT<BF>::T;
+__global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs g) {
   extern __shared__ __align__(16) float smem[];
   constexpr int V = kVecs;
-  const int C = g.C, F_out = g.F_out, D = g.D, De = g.De, Dh = g.Dh, ldc = g.De + g.D;
+  const int C = g.C, F_out = g.F_out, D = g.w.D, De = g.w.De;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int v0 = blockIdx.x * V;
   const int n_vecs = min(V, g.N - v0);
@@ -64,7 +60,8 @@ __global__ void __launch_bounds__(kThreads) select_rebuild_kernel(RebuildArgs g)
   float* cand_s = reinterpret_cast<float*>(par_s + V * F_out);  // (TM, D) f32 codewords
   float* cond_s = cand_s + TM * D;                   // (TM, D) f32 parent rows
   float* h_s = cond_s + TM * D;                      // (TM, De)
-  float* big_s = h_s + TM * De;  // (TM, max(De + D, Dh, D)): [h0 | rnd(cond)], then FFN hidden
+  float* lr_s = h_s + TM * De;                       // (TM, Wc) with the low-rank factor
+  float* cat_s = lr_s + (g.w.concat_w2 ? TM * g.w.Wc : 0);  // (TM, max(De + D, Dh, D))
 
   for (int e = tid; e < V * C; e += kThreads)
     d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
@@ -119,83 +116,34 @@ __global__ void __launch_bounds__(kThreads) select_rebuild_kernel(RebuildArgs g)
       }
       cand_s[e] = cv;
       cond_s[e] = hv;
-      big_s[t * ldc + De + c] = rnd<BF>(hv);
-      if (!g.in_proj) big_s[t * ldc + c] = rnd<BF>(cv);  // De == D
     }
     __syncthreads();
-    if (g.in_proj) {
-      mlp_stage<TM, true, BF>(cand_s, D, static_cast<const WT*>(g.in_proj), D, De,
-                              [&](int t, int c, float acc) { big_s[t * ldc + c] = rnd<BF>(acc); });
-      __syncthreads();
-    }
-    // h = h0 + rnd([h0 | rnd(cond)]·concat_w + b)
-    mlp_stage<TM, false, BF>(big_s, ldc, static_cast<const WT*>(g.concat_w), ldc, De,
-                             [&](int t, int c, float acc) {
-                               h_s[t * De + c] =
-                                   rnd<BF>(big_s[t * ldc + c] + rnd<BF>(acc + g.concat_b[c]));
-                             });
-    __syncthreads();
-    for (int l = 0; l < g.L; ++l) {
-      const WT* up = static_cast<const WT*>(g.ffn_up) + (size_t)l * De * Dh;
-      const WT* down = static_cast<const WT*>(g.ffn_down) + (size_t)l * Dh * De;
-      mlp_stage<TM, false, BF>(h_s, De, up, De, Dh, [&](int t, int c, float acc) {
-        big_s[t * Dh + c] = rnd<BF>(fmaxf(acc, 0.f));
-      });
-      __syncthreads();
-      mlp_stage<TM, false, BF>(big_s, Dh, down, Dh, De, [&](int t, int c, float acc) {
-        h_s[t * De + c] = rnd<BF>(h_s[t * De + c] + rnd<BF>(acc));
-      });
-      __syncthreads();
-    }
-    // xhat = (out + cand) + cond
-    auto emit = [&](int t, int c, float o) {
-      const int p = p0 + t;
-      if (p < n_pairs) {
-        if (g.res) o += cand_s[t * D + c];
-        xo[(size_t)p * D + c] = o + cond_s[t * D + c];
-      }
-    };
-    if (g.out_proj) {
-      mlp_stage<TM, false, BF>(h_s, De, static_cast<const WT*>(g.out_proj), De, D, emit);
-    } else {
-      for (int e = tid; e < TM * D; e += kThreads) emit(e / D, e % D, h_s[e]);
-    }
+    mlp_chain_tile<TM, BF>(g.w, cand_s, cond_s, h_s, lr_s, cat_s, g.res,
+                           [&](int t, int c, float v) {
+                             if (p0 + t < n_pairs) xo[(size_t)(p0 + t) * D + c] = v;
+                           });
     __syncthreads();
   }
-}
-
-template <int TM, bool BF>
-static cudaError_t launch(const RebuildArgs& a, int smem, cudaStream_t stream) {
-  auto kernel = select_rebuild_kernel<TM, BF>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<(a.N + kVecs - 1) / kVecs, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace qt
 
 extern "C" int qt_select_rebuild(const float* dists, const float* xh, const float* codebook,
-                                 const void* in_proj, const void* concat_w, const float* concat_b,
-                                 const void* ffn_up, const void* ffn_down, const void* out_proj,
-                                 float* xhat, int* codes, int* parents, int N, int C, int A_eff,
-                                 int F_in, int F_out, int D, int K, int De, int Dh, int L, int tm,
-                                 int smem, int bf16, int res, void* stream) {
+                                 const void* in_proj, const void* concat_w, const void* concat_w2,
+                                 const float* concat_b, const void* ffn_up, const void* ffn_down,
+                                 const void* out_proj, float* xhat, int* codes, int* parents,
+                                 int N, int C, int A_eff, int F_in, int F_out, int D, int K,
+                                 int De, int Dh, int L, int Wc, int tm, int smem, int bf16,
+                                 int res, void* stream) {
   using namespace qt;
   if (N == 0) return 0;
-  const RebuildArgs a{dists, xh, codebook, in_proj, concat_w, concat_b, ffn_up, ffn_down,
-                      out_proj, xhat, codes, parents, N, C, A_eff, F_in, F_out, D, K, De, Dh,
-                      L, res};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (tm * 2 + (bf16 ? 1 : 0)) {
-    case 129: e = launch<64, true>(a, smem, s); break;
-    case 128: e = launch<64, false>(a, smem, s); break;
-    case 65: e = launch<32, true>(a, smem, s); break;
-    case 64: e = launch<32, false>(a, smem, s); break;
-    case 33: e = launch<16, true>(a, smem, s); break;
-    case 32: e = launch<16, false>(a, smem, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  const ChainWeights w{in_proj, concat_w, concat_w2, concat_b, ffn_up, ffn_down, out_proj,
+                       D,       De,       Dh,        L,        Wc};
+  const RebuildArgs a{dists, xh, codebook, w, xhat, codes, parents, N, C, A_eff, F_in, F_out,
+                      K,     res};
+  const int blocks = (N + kVecs - 1) / kVecs;
+  return static_cast<int>(dispatch_tile(tm, bf16, [&](auto TM, auto BF) {
+    return launch_kernel(select_rebuild_kernel<decltype(TM)::value, decltype(BF)::value>, blocks,
+                         smem, static_cast<cudaStream_t>(stream), a);
+  }));
 }

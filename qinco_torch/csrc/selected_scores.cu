@@ -1,15 +1,21 @@
-// Selected-scores kernel with the exact in-kernel top-A.
+// Selected-scores kernel: exact top-A candidates, scored.
 //
 // Replaces: qinco_tpu/ops/pallas_kernels.py, selected_scores_pallas
-// (:880) with sub_codebook given, body _selected_scores_kernel (:625).
+// (:880), body _selected_scores_kernel (:625), both of its routes:
+//   - in-kernel top-A (sub_codebook given, vals null): the substep
+//     distances over K and an exact ascending top-A per row;
+//   - external vals (vals given, B2'): the top-A was taken outside, and
+//     the kernel reads each slot's id from the low bits of its packed
+//     value.
 //
 // What it computes, per beam row (x broadcast over the F_in rows of its
-// vector), under the lean fetch of spec.fast:
+// vector):
 //   r      = x - xh
-//   d_sub  = ||C_k||^2 - 2 rnd(C_k)·rnd(r)     for every substep codeword k
-//   top-A  = the A smallest packed d_sub, ascending (ties to the lower id)
-//   for each winner id:  cand = table[id] (compute dtype)
-//     h = rnd(cand·wfold + rnd(xh)·W2 + b)
+//   [in-kernel top-A]  d_sub = ||C_k||^2 - 2 rnd(C_k)·rnd(r) for every k;
+//                      the A smallest packed d_sub, ascending
+//   for each slot's id:  cand = table[id][:D] (compute dtype)
+//     lean table (spec.fast):  h = rnd(cand·wfold + rnd(xh)·W2 + b)
+//     folded table:            h = rnd(table[id][D:] + rnd(xh)·W2 + b)
 //     L times: up = rnd(relu(h·U_l)); h = rnd(h + rnd(up·D_l))
 //     out = h·P_out (f32) or h
 //     d = ||r - out - cand||^2, packed with id  ->  out[row][slot]
@@ -36,28 +42,26 @@ constexpr int kRows = 32;  // beam rows per block
 struct SelectedArgs {
   const float* x;         // (NF / F_in, D) per-vector targets
   const float* xh;        // (NF, D) beam rows
+  const float* vals;      // (NF, A) packed external top-A, or null
   const float* sub_t;     // (D, K) substep codebook, rounded, transposed
   const float* cn2;       // (K,) ||C_k||^2 of the f32 substep codebook
-  const void* table;      // (K, D) codebook in the compute dtype
-  const void* wfold;      // (D, De) P·(I+W1)
+  const void* table;      // (K, Wt): lean C (Wt = D) or folded [C | h_cand]
+  const void* wfold;      // (D, De) P·(I+W1) with the lean table, else null
   const void* w2;         // (D, De) condition half of the concat weight
   const float* concat_b;  // (De,)
   const void* ffn_up;     // (L, De, Dh)
   const void* ffn_down;   // (L, Dh, De)
   const void* out_proj;   // (De, D) or null
   float* out;             // (NF, A) packed distances
-  int NF, F_in, D, K, De, Dh, L, A, res;
+  int NF, F_in, D, K, De, Dh, L, A, Wt, res;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads) selected_scores_kernel(SelectedArgs g) {
+__global__ void __launch_bounds__(kThreads, 1) selected_scores_kernel(SelectedArgs g) {
   using WT = typename WeightT<BF>::T;
   extern __shared__ __align__(16) float smem[];
   constexpr int R = kRows;
-  const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A;
+  const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * R;
   const int n_rows = min(R, g.NF - row0);
@@ -85,51 +89,47 @@ __global__ void __launch_bounds__(kThreads) selected_scores_kernel(SelectedArgs 
                          [&](int i, int c, float acc) { ccb_s[i * De + c] = acc + g.concat_b[c]; });
   __syncthreads();
 
-  // ---- phase 1: packed substep partial distances, a (K, R) tile
-  float* rr_s = u_s;          // (R, D) r rounded to the compute dtype
-  float* S_s = rr_s + R * D;  // (K, R + 1), padded against bank conflicts
-  for (int e = tid; e < R * D; e += kThreads) rr_s[e] = rnd<BF>(r_s[e]);
-  __syncthreads();
-  for (int k = tid; k < K; k += kThreads) {
-    float acc[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float c = __ldg(g.sub_t + (size_t)d * K + k);
-#pragma unroll
-      for (int i = 0; i < R; ++i) acc[i] = fmaf(c, rr_s[i * D + d], acc[i]);
-    }
-    const float n2 = g.cn2[k];
-#pragma unroll
-    for (int i = 0; i < R; ++i) S_s[k * (R + 1) + i] = pack_id(n2 - 2.f * acc[i], k);
-  }
-  __syncthreads();
+  if (g.vals) {
+    // ---- external top-A: the packed values carry the ids
+    for (int e = tid; e < R * A; e += kThreads)
+      val_s[e] = e / A < n_rows ? g.vals[(size_t)row0 * A + e] : 0.f;
+    __syncthreads();
+  } else {
+    // ---- phase 1: packed substep partial distances, a (K, R) tile
+    float* rr_s = u_s;          // (R, D) r rounded to the compute dtype
+    float* S_s = rr_s + R * D;  // (K, R + 1)
+    for (int e = tid; e < R * D; e += kThreads) rr_s[e] = rnd<BF>(r_s[e]);
+    __syncthreads();
+    substep_tile<R>(rr_s, D, g.sub_t, g.cn2, K, S_s);
+    __syncthreads();
 
-  // ---- phase 2: exact top-A per row, ascending.  A rounds of (warp min,
-  // remove the winner).  The packed values of one row are pairwise
-  // distinct (their ids differ), so each round removes exactly one entry
-  // and the order is that of a stable sort of the packed values.  They
-  // are compared as floats: partial distances can be negative.
-  for (int i = warp; i < R; i += kWarps) {
-    float v[8];  // K <= 256 = 32 lanes x 8
+    // ---- phase 2: exact top-A per row, ascending.  A rounds of (warp
+    // min, remove the winner).  The packed values of one row are
+    // pairwise distinct (their ids differ), so each round removes exactly
+    // one entry and the order is that of a stable sort of the packed
+    // values.  They are compared as floats: partial distances can be
+    // negative.
+    for (int i = warp; i < R; i += kWarps) {
+      float v[8];  // K <= 256 = 32 lanes x 8
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = lane + 32 * j;
-      v[j] = k < K ? S_s[k * (R + 1) + i] : CUDART_INF_F;
+      for (int j = 0; j < 8; ++j) {
+        const int k = lane + 32 * j;
+        v[j] = k < K ? S_s[k * (R + 1) + i] : CUDART_INF_F;
+      }
+      for (int a = 0; a < A; ++a) {
+        float m = v[0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) m = fminf(m, v[j]);
+#pragma unroll
+        for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (v[j] == m) v[j] = CUDART_INF_F;
+        if (lane == 0) val_s[i * A + a] = m;
+      }
     }
-    for (int a = 0; a < A; ++a) {
-      float m = v[0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) m = fminf(m, v[j]);
-#pragma unroll
-      for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off));
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (v[j] == m) v[j] = CUDART_INF_F;
-      if (lane == 0) val_s[i * A + a] = m;
-    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- phase 3: fetch, MLP and distance for the (row, slot) pairs,
   // TM at a time; pair p = i * A + a is val_s[p].
@@ -141,82 +141,47 @@ __global__ void __launch_bounds__(kThreads) selected_scores_kernel(SelectedArgs 
   for (int p0 = 0; p0 < n_pairs; p0 += TM) {
     for (int e = tid; e < TM * D; e += kThreads) {
       const int t = e / D, c = e - t * D, p = p0 + t;
-      cand_s[e] = p < n_pairs ? to_f32(table[unpack_id(val_s[p]) * D + c]) : 0.f;
+      cand_s[e] = p < n_pairs ? to_f32(table[(size_t)unpack_id(val_s[p]) * Wt + c]) : 0.f;
     }
-    __syncthreads();
-    mlp_stage<TM, false, BF>(cand_s, D, static_cast<const WT*>(g.wfold), D, De,
-                             [&](int t, int c, float acc) {
-                               const int i = min(p0 + t, n_pairs - 1) / A;
-                               h_s[t * De + c] = rnd<BF>(acc + ccb_s[i * De + c]);
-                             });
-    __syncthreads();
-    for (int l = 0; l < g.L; ++l) {
-      const WT* up = static_cast<const WT*>(g.ffn_up) + (size_t)l * De * Dh;
-      const WT* down = static_cast<const WT*>(g.ffn_down) + (size_t)l * Dh * De;
-      mlp_stage<TM, false, BF>(h_s, De, up, De, Dh, [&](int t, int c, float acc) {
-        big_s[t * Dh + c] = rnd<BF>(fmaxf(acc, 0.f));
-      });
+    if (g.wfold) {
       __syncthreads();
-      mlp_stage<TM, false, BF>(big_s, Dh, down, Dh, De, [&](int t, int c, float acc) {
-        h_s[t * De + c] = rnd<BF>(h_s[t * De + c] + rnd<BF>(acc));
-      });
-      __syncthreads();
-    }
-    const float* o_s = h_s;
-    int ldo = De;
-    if (g.out_proj) {
-      mlp_stage<TM, false, BF>(h_s, De, static_cast<const WT*>(g.out_proj), De, D,
-                               [&](int t, int c, float acc) { big_s[t * D + c] = acc; });
-      __syncthreads();
-      o_s = big_s;
-      ldo = D;
-    }
-    for (int t = warp; t < TM && p0 + t < n_pairs; t += kWarps) {
-      const int p = p0 + t, i = p / A;
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        float diff = r_s[i * D + c] - o_s[t * ldo + c];
-        if (g.res) diff -= cand_s[t * D + c];
-        s = fmaf(diff, diff, s);
+      mlp_stage<TM, false, BF>(cand_s, D, static_cast<const WT*>(g.wfold), D, De,
+                               [&](int t, int c, float acc) {
+                                 const int i = min(p0 + t, n_pairs - 1) / A;
+                                 h_s[t * De + c] = rnd<BF>(acc + ccb_s[i * De + c]);
+                               });
+    } else {
+      for (int e = tid; e < TM * De; e += kThreads) {
+        const int t = e / De, c = e - t * De, p = min(p0 + t, n_pairs - 1);
+        h_s[e] = rnd<BF>(to_f32(table[(size_t)unpack_id(val_s[p]) * Wt + D + c]) +
+                         ccb_s[(p / A) * De + c]);
       }
-      s = warp_sum(s);
-      if (lane == 0 && i < n_rows) g.out[(size_t)row0 * A + p] = pack_id(s, unpack_id(val_s[p]));
     }
+    __syncthreads();
+    ffn_blocks<TM, BF>(h_s, big_s, g.ffn_up, g.ffn_down, 0, g.L, De, Dh);
+    score_pairs<TM, BF>(h_s, big_s, g.out_proj, cand_s, r_s, val_s, p0, n_pairs, A, n_rows, D,
+                        De, g.res, g.out + (size_t)row0 * A);
     __syncthreads();
   }
-}
-
-template <int TM, bool BF>
-static cudaError_t launch(const SelectedArgs& a, int smem, cudaStream_t stream) {
-  auto kernel = selected_scores_kernel<TM, BF>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<(a.NF + kRows - 1) / kRows, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace qt
 
-extern "C" int qt_selected_scores(const float* x, const float* xh, const float* sub_t,
-                                  const float* cn2, const void* table, const void* wfold,
-                                  const void* w2, const float* concat_b, const void* ffn_up,
-                                  const void* ffn_down, const void* out_proj, float* out,
-                                  int NF, int F_in, int D, int K, int De, int Dh, int L, int A,
-                                  int tm, int smem, int bf16, int res, void* stream) {
+extern "C" int qt_selected_scores(const float* x, const float* xh, const float* vals,
+                                  const float* sub_t, const float* cn2, const void* table,
+                                  const void* wfold, const void* w2, const float* concat_b,
+                                  const void* ffn_up, const void* ffn_down, const void* out_proj,
+                                  float* out, int NF, int F_in, int D, int K, int De, int Dh,
+                                  int L, int A, int Wt, int tm, int smem, int bf16, int res,
+                                  void* stream) {
   using namespace qt;
   if (NF == 0) return 0;
-  const SelectedArgs a{x, xh, sub_t, cn2, table, wfold, w2, concat_b, ffn_up, ffn_down,
-                       out_proj, out, NF, F_in, D, K, De, Dh, L, A, res};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (tm * 2 + (bf16 ? 1 : 0)) {
-    case 129: e = launch<64, true>(a, smem, s); break;
-    case 128: e = launch<64, false>(a, smem, s); break;
-    case 65: e = launch<32, true>(a, smem, s); break;
-    case 64: e = launch<32, false>(a, smem, s); break;
-    case 33: e = launch<16, true>(a, smem, s); break;
-    case 32: e = launch<16, false>(a, smem, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  const SelectedArgs a{x,      xh,       vals,     sub_t, cn2, table, wfold, w2, concat_b,
+                       ffn_up, ffn_down, out_proj, out,   NF,  F_in,  D,     K,  De,
+                       Dh,     L,        A,        Wt,    res};
+  const int blocks = (NF + kRows - 1) / kRows;
+  return static_cast<int>(dispatch_tile(tm, bf16, [&](auto TM, auto BF) {
+    return launch_kernel(selected_scores_kernel<decltype(TM)::value, decltype(BF)::value>, blocks,
+                         smem, static_cast<cudaStream_t>(stream), a);
+  }));
 }

@@ -9,14 +9,22 @@ matmul accumulates in float32 with its inputs rounded to
 
 - ``encode_profile=exact`` (``pallas=False``) runs :func:`_beam_step`'s
   plain branch in torch;
-- ``encode_profile=parity`` (``pallas`` + ``fast`` + ``fused_topa``)
-  runs :func:`_beam_step_fused` through the two hand-written kernels of
+- ``pallas`` runs the hand-written kernels of
   :mod:`qinco_torch.ops.kernels` on a CUDA tensor (their plain versions
-  on a CPU tensor).
+  on a CPU tensor), scoring with
+  - the fused-substep kernel under ``fused_substep`` (``encode_profile=
+    speed``; power-of-two K <= 256 and A | K),
+  - the selected-scores kernel with its in-kernel exact top-A under
+    ``fast`` + ``fused_topa`` (``encode_profile=parity``), or with the
+    top-A taken outside (the external-vals route: ``pallas`` alone, or
+    ``fused_topa=False``),
+  - the candidate-scores kernel for K > 256 or ``concat_rank``,
+  then selecting and rebuilding in :func:`_select_rebuild` (the
+  select-rebuild kernel; torch for K > 256, which packs no ids).
 
-Routes that this package does not port yet raise ``NotImplementedError``
-naming the ROADMAP item that will port them; none is replaced silently by
-another route.
+Every encode route of the JAX package runs here; where the JAX package
+takes an approximate top-k (a TPU operation) the port takes the exact
+one, as JAX does on the CPU.
 """
 
 from __future__ import annotations
@@ -43,12 +51,6 @@ class EncodeStats(NamedTuple):
 
     xtarget_mean: torch.Tensor  # (Ms, D)
     xtarget_std: torch.Tensor  # (Ms, D)
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to qinco_torch yet (ROADMAP {item})"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -164,12 +166,16 @@ def _beam_step(
     """One beam-search step.  Returns ``(xhat_next (N, F_out, D), codes
     (N, F_out), parents (N, F_out), (t_mean, t_std))``, beams ascending by
     distance; the caller backtraces the code history once at the end."""
-    if spec.has_substep() and _fused_substep_ok(spec, n_codes):
-        raise _unported("the speed profile (fused_substep / perbin, kernel B4)", "B4")
-
     N, F_in, D = xhat.shape
     NF = N * F_in
     xh = xhat.reshape(NF, D)
+
+    def tail(dists, ids=None):
+        return _select_rebuild(spec, p, x, xhat, dists, F_out, n_codes, w, want_stats, ids)
+
+    if spec.has_substep() and _fused_substep_ok(spec, n_codes):
+        # speed profile: binned-argmin selection fused into the scoring kernel
+        return tail(kernels.fused_substep_scores(spec, x, xh, p, n_codes))
 
     if spec.has_substep():
         if (
@@ -179,19 +185,24 @@ def _beam_step(
             and spec.K <= 256
             and n_codes <= spec.K
             and p.concat_w2 is None
-        ):
-            return _beam_step_fused(spec, p, x, xhat, F_out, n_codes, w, want_stats)
-        if spec.pallas and spec.K <= 256 and p.concat_w2 is None:
-            raise _unported(
-                "the external-vals selected route (pallas with fused_topa=False, "
-                "kernel B2')", "B2'")
-        if spec.pallas:
-            raise _unported(
-                "the candidate route (pallas with K > 256 or concat_rank, "
-                "kernel B5)", "B5")
+        ):  # exact top-A inside the selected-scores kernel
+            return tail(kernels.selected_scores(spec, x, xh, p, n_codes))
+        # Substep pre-selection outside any kernel, in f32 (the JAX
+        # package's HIGHEST precision; its fast profile's DEFAULT precision
+        # is f32 on the CPU too), and an exact top-A where JAX's fast
+        # profile takes approx_max_k (exact on the CPU as well).
         x_f = x[:, None, :].expand(N, F_in, D).reshape(NF, D)
         sub_d = pairwise_sqdist_partial(x_f - xh, p.sub_codebook)  # (NF, K)
+        if spec.pallas and spec.K <= 256 and p.concat_w2 is None:
+            # external-vals route: only the winners' packed values enter the kernel
+            ids_k = torch.arange(spec.K, dtype=torch.int32, device=x.device)[None, :]
+            _, vals = topk_smallest(kernels.pack_ids_f32(sub_d, ids_k), n_codes)
+            return tail(kernels.selected_scores(spec, x, xh, p, n_codes, vals=vals))
         top_idx, _ = topk_smallest(sub_d, n_codes)  # (NF, n)
+        if spec.pallas:  # candidate route: K > 256 or a low-rank concat factor
+            packed = spec.K <= 256
+            dists = kernels.candidate_scores(spec, x_f, xh, top_idx, p, pack_ids=packed)
+            return tail(dists, None if packed else top_idx)
         book = p.codebook
         if spec.fast:  # the JAX fast route fetches through a bf16 one-hot product
             book = book.to(torch.bfloat16).float()
@@ -219,29 +230,38 @@ def _beam_step(
     return xhat_next, real.int(), f_in_idx.int(), (t_mean, t_std)
 
 
-def _beam_step_fused(
+def _select_rebuild(
     spec: QincoSpec,
     p: StepParams,
     x: torch.Tensor,  # (N, D)
     xhat: torch.Tensor,  # (N, F_in, D)
+    dists: torch.Tensor,  # (N·F_in, n_codes) from a scoring kernel
     F_out: int,
     n_codes: int,
-    w: Optional[torch.Tensor] = None,
-    want_stats: bool = True,
+    w: Optional[torch.Tensor],
+    want_stats: bool,
+    ids: Optional[torch.Tensor] = None,  # (N·F_in, n_codes) when dists packs none
 ):
-    """Kernel beam step: the selected-scores kernel (exact in-kernel
-    top-A, MLP and distance for the F_in·A candidates), then the
-    select-rebuild kernel (exact beam top-F_out and the F_out
-    reconstructions).  ``spec.fused_select`` does not route here: the
-    JAX package's unfused XLA tail computes the same function as the
-    select-rebuild kernel, and its size bound was a TPU measurement, so
-    selection and rebuild always go through the kernel's wrapper (its
-    plain version on a CPU tensor)."""
+    """The kernel beam step's tail: the exact beam top-F_out over the
+    F_in·n_codes scored candidates, then their reconstructions.
+
+    With packed ids (``ids`` None: every route with K <= 256) the
+    select-rebuild kernel does both.  ``spec.fused_select`` does not route
+    here: the JAX package's unfused XLA tail computes the same function,
+    and its size bound was a TPU measurement.  Without packed ids (the
+    candidate route at K > 256) the codes come from ``ids`` and the tail
+    runs in torch, as JAX runs it outside any kernel."""
     N, F_in, D = xhat.shape
     xh = xhat.reshape(N * F_in, D)
-    dists = kernels.selected_scores(spec, x, xh, p, n_codes).reshape(N, F_in * n_codes)
-    xhat_next, real, f_in_idx = kernels.select_rebuild(
-        spec, dists, xh, p, A_eff=n_codes, F_out=F_out)
+    dists = dists.reshape(N, F_in * n_codes)
+    if ids is None:
+        xhat_next, real, f_in_idx = kernels.select_rebuild(
+            spec, dists, xh, p, A_eff=n_codes, F_out=F_out)
+    else:
+        top, _ = topk_smallest(dists, F_out)  # (N, F_out)
+        f_in_idx = (top // n_codes).int()
+        real = torch.gather(ids.reshape(N, F_in * n_codes), 1, top).int()
+        xhat_next = kernels.rebuild_plain(spec, xh, p, real, f_in_idx)
 
     t_mean, t_std = _maybe_target_stats(spec, x, xhat, w, want_stats)
     return xhat_next, real, f_in_idx, (t_mean, t_std)
@@ -283,8 +303,6 @@ def encode_from_coarse(
 ) -> tuple[torch.Tensor, torch.Tensor, EncodeStats]:
     """The MLP beam-search phases given an externally computed step-0
     assignment, with the O(M·N) backtrace of the winning beam."""
-    if spec.approx_beam:
-        raise _unported("approx_beam", "A9")
     N, D = x.shape
     Ms = spec.n_mlp_steps
     if Ms == 0:
@@ -305,7 +323,15 @@ def encode_from_coarse(
 
     # Beams are ascending by distance, so beam 0 of the last step is the
     # winner; one reverse walk over (code, parent) recovers its history.
-    beam = torch.zeros((N, 1), dtype=torch.long, device=x.device)
+    # Under approx_beam the winner is re-picked by an exact argmin of the
+    # B survivors' f32 distances, as the JAX package does after its
+    # approximate per-step top-k (the port's per-step top-k is exact).
+    if spec.approx_beam:
+        d_fin = ((x[:, None, :] - xhat) ** 2).sum(-1)  # (N, F)
+        beam = torch.argmin(d_fin, dim=1, keepdim=True)  # first minimum
+        xhat = torch.gather(xhat, 1, beam[..., None].expand(N, 1, D))
+    else:
+        beam = torch.zeros((N, 1), dtype=torch.long, device=x.device)
     rows = []
     for real, par in zip(reversed(reals), reversed(pars)):
         rows.append(torch.gather(real, 1, beam)[:, 0])

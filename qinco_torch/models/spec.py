@@ -7,21 +7,29 @@ configs carry over:
 
 - ``compute_dtype``: dtype of the MLP matmul inputs ("float32" or
   "bfloat16"); products always accumulate in float32.
-- ``fast``: the lean-fetch precision class of the kernel route (bf16
-  substep products, folded weight ``P·(I+W1)``), which the in-kernel
-  top-A route requires.  In the plain route it fetches codewords rounded
-  to bf16, as the JAX one-hot product does.  The substep and IVF step-0
-  distances stay f32 (as JAX computes them on the CPU).
+- ``fast``: the lean-fetch precision class of the selected-scores kernel
+  (bf16 substep products, folded weight ``P·(I+W1)``); without it that
+  kernel fetches through the folded table ``[C | C·P·(I+W1)]``.  In the
+  plain route it fetches codewords rounded to bf16, as the JAX one-hot
+  product does.  The substep and IVF step-0 distances stay f32 (as JAX
+  computes them on the CPU).
 - ``pallas``: run the beam steps through the hand-written kernels of
   :mod:`qinco_torch.ops.kernels` (the name is kept for configs).
-- ``fused_topa``: exact top-A inside the selected-scores kernel.  The
-  external-vals route (``fused_topa=False``) is not ported yet.
+- ``fused_topa``: exact top-A inside the selected-scores kernel (with
+  ``fast``); off, the exact top-A is taken outside and its packed values
+  enter the kernel (the external-vals route).
 - ``fused_select``: ignored on the card.  The kernel route always runs
-  beam top-B + rebuild in the select-rebuild kernel; the JAX package's
-  unfused tail computes the same function.
-- ``fused_substep``, ``perbin``, ``fold_up``: the speed profile's binned
-  kernel, not ported yet (``fold_up`` alone is ignored).
-- ``approx_beam``: TPU approximate top-k, not ported yet.
+  beam top-B + rebuild in the select-rebuild kernel where the ids are
+  packed (K <= 256); the JAX package's unfused tail computes the same
+  function.
+- ``fused_substep``: the speed profile's binned-argmin kernel
+  (power-of-two K <= 256, A | K).  ``fold_up`` picks its table layout.
+  ``perbin`` has no effect on the card: it picks one of two TPU layouts
+  of the same function.
+- ``approx_beam``: the per-step beam top-k stays exact (the TPU's
+  approximate top-k is exact on the CPU too); the final re-pick of the
+  winning beam by an exact argmin of the B survivors' distances runs as
+  in the JAX package.
 - ``row_tile``, ``select_tile``: TPU VMEM tiling knobs; ignored on the
   card, whose kernels size their own tiles.
 """

@@ -1,13 +1,20 @@
-"""The beam step's two hand-written Hopper kernels, their plain PyTorch
-versions and their wrappers (counterpart of the main-path part of
+"""The beam step's hand-written Hopper kernels, their plain PyTorch
+versions and their wrappers (counterpart of
 ``qinco_tpu/ops/pallas_kernels.py``).
 
-- :func:`selected_scores` replaces ``selected_scores_pallas`` with
-  ``sub_codebook`` set (``_selected_scores_kernel``, the in-kernel exact
-  top-A route): per beam row, the substep partial distances over K, an
-  exact ascending top-A, and for each winner the step MLP and the squared
-  distance to the target, with the codeword id packed into the low 8
-  mantissa bits (:func:`pack_ids_f32`).
+- :func:`selected_scores` replaces ``selected_scores_pallas``: per beam
+  row, an exact top-A of the substep codewords (taken in the kernel, or
+  given as packed values from outside: the external-vals route), and
+  for each winner the step MLP through the folded concat table (the lean
+  fetch under ``spec.fast``) and the squared distance to the target,
+  with the codeword id packed into the low 8 mantissa bits
+  (:func:`pack_ids_f32`).
+- :func:`fused_substep_scores` replaces ``fused_substep_scores_pallas``
+  (the speed profile): a binned argmin (the best codeword of each of A
+  contiguous bins) and the step MLP through the fused per-codeword table.
+- :func:`candidate_scores` replaces ``candidate_scores_pallas``: the
+  unfolded step MLP and the full distance for externally chosen ids, any
+  K (packed only for K <= 256), low-rank concat factor included.
 - :func:`select_rebuild` replaces ``select_rebuild_pallas``: the exact
   beam top-F_out over each vector's packed distances (``lax.top_k`` tie
   order), then the F_out reconstructions through the step MLP.
@@ -33,20 +40,24 @@ import torch
 
 from ..models.spec import QincoSpec
 
-LAUNCHES = {"selected_scores": 0, "select_rebuild": 0}
+# name -> (source, pointer arguments, int arguments) of the C entry point
+# ``qt_<name>(pointers..., ints..., stream)``.
+_KERNELS = {
+    "selected_scores": ("selected_scores.cu", 13, 13),
+    "select_rebuild": ("select_rebuild.cu", 13, 15),
+    "fused_substep_scores": ("fused_substep_scores.cu", 12, 17),
+    "candidate_scores": ("candidate_scores.cu", 12, 13),
+}
+LAUNCHES = {name: 0 for name in _KERNELS}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = {
-    "selected_scores": "selected_scores.cu",
-    "select_rebuild": "select_rebuild.cu",
-}
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # Dynamic shared memory a block may use on sm_90 (232,448 bytes).
 _SMEM_LIMIT = 227 * 1024
-_ROWS = 32  # beam rows per selected-scores block (kRows in the .cu)
+_ROWS = 32  # beam rows per selected / fused-substep block (kRows in the .cu)
 _VECS = 8  # vectors per select-rebuild block (one warp each)
 
 
@@ -64,6 +75,13 @@ def rounder(spec: QincoSpec):
     if _compute_dtype(spec) == torch.bfloat16:
         return lambda t: t.to(torch.bfloat16).float()
     return lambda t: t.float()
+
+
+def _exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as a float32 result summed in float64: the f32-accumulated
+    product with which the JAX package builds its tables, independent of
+    TF32 and of the summation order."""
+    return (a.double() @ b.double()).float()
 
 
 # ---------------------------------------------------------------------------
@@ -91,15 +109,65 @@ def unpack_ids(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# B2: selected scores with the exact in-kernel top-A
+# Pieces shared by the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _substep_operands(spec: QincoSpec, p):
+    """(sub_t (D, K) the rounded substep codebook transposed, cn2 (K,) the
+    squared norms of the f32 substep codebook)."""
+    sub = p.sub_codebook.float()
+    return rounder(spec)(sub).t().contiguous(), (sub * sub).sum(1)
+
+
+def _substep_packed(spec, r, sub_t, cn2):
+    """Packed substep partial distances ``(NF, K)``:
+    ‖C_k‖² − 2·rnd(C_k)·rnd(r) with id k in the low bits."""
+    d_sub = cn2[None, :] - 2.0 * (rounder(spec)(r) @ sub_t)
+    ids = torch.arange(cn2.shape[0], dtype=torch.int32, device=r.device)[None, :]
+    return pack_ids_f32(d_sub, ids)
+
+
+def _ffn(spec, h, ffn_up, ffn_down, l0: int = 0):
+    rnd = rounder(spec)
+    for l in range(l0, spec.L):
+        up = rnd(torch.relu(h @ ffn_up[l].float()))
+        h = rnd(h + rnd(up @ ffn_down[l].float()))
+    return h
+
+
+def _score(spec, h, out_proj, r, cand, ids):
+    """‖r − out − cand‖² (cand only in QINCo2 mode), packed with ``ids``."""
+    out = h @ out_proj.float() if out_proj is not None else h
+    diff = r[:, None, :] - out
+    if spec.res_codeword_coeff:
+        diff = diff - cand
+    return pack_ids_f32((diff * diff).sum(-1), ids)
+
+
+def _check_rows(name: str, x, xh, p) -> int:
+    """x (N, D) one target per vector, xh (N·F_in, D); returns F_in."""
+    NF, D = xh.shape
+    if x.dim() != 2 or x.shape[1] != D or x.shape[0] == 0 or NF % x.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be (NF / F_in, D) for xh "
+                         f"{tuple(xh.shape)}")
+    if x.dtype != torch.float32 or xh.dtype != torch.float32:
+        raise ValueError(f"{name}: x and xh must be float32")
+    if x.device != xh.device or p.codebook.device != xh.device:
+        raise ValueError(f"{name}: x, xh and the step weights must be on one device")
+    return NF // x.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# B2 / B2': selected scores (in-kernel or external exact top-A)
 # ---------------------------------------------------------------------------
 
 
 class _SelectedWeights(NamedTuple):
     sub_t: torch.Tensor  # (D, K) f32: substep codebook rounded, transposed
     cn2: torch.Tensor  # (K,) f32: squared norms of the f32 substep codebook
-    table: torch.Tensor  # (K, D) dt: the codebook the winners are fetched from
-    wfold: torch.Tensor  # (D, De) dt: P·(I+W1), computed in high precision
+    table: torch.Tensor  # (K, Wt) dt: lean C (Wt = D) or folded [C | h_cand]
+    wfold: Optional[torch.Tensor]  # (D, De) dt: P·(I+W1) with the lean table
     w2: torch.Tensor  # (D, De) dt: condition half of the concat weight
     concat_b: torch.Tensor  # (De,) f32
     ffn_up: torch.Tensor  # (L, De, Dh) dt
@@ -108,21 +176,29 @@ class _SelectedWeights(NamedTuple):
 
 
 def _selected_weights(spec: QincoSpec, p) -> _SelectedWeights:
-    """The lean-fetch operands of ``selected_scores_pallas`` under
-    ``spec.fast``: the kernel fetches the dt codebook row of each winner
-    and multiplies it into the folded weight wfold = P·(I+W1)."""
+    """The operands of ``selected_scores_pallas``.  Under ``spec.fast``
+    the lean fetch: the dt codebook, multiplied into the folded weight
+    wfold = P·(I+W1) (computed in high precision, as JAX's HIGHEST).
+    Otherwise the folded table rnd([C | cp + rnd(cp)·rnd(W1)]) with
+    cp = rnd(C)·rnd(P), or C without in_proj."""
     dt = _compute_dtype(spec)
+    rnd = rounder(spec)
     h_w = p.in_proj.shape[1] if p.in_proj is not None else spec.D
     w1, w2 = p.concat_w[:h_w], p.concat_w[h_w:]
-    wfold = torch.eye(h_w, dtype=torch.float32, device=w1.device) + w1
-    if p.in_proj is not None:  # P·(I+W1) in float64, as JAX's HIGHEST-precision product
-        wfold = (p.in_proj.double() @ wfold.double()).float()
-    sub = p.sub_codebook.float()
+    C = p.codebook.float()
+    wfold = None
+    if spec.fast:
+        wfold = torch.eye(h_w, dtype=torch.float32, device=w1.device) + w1
+        if p.in_proj is not None:
+            wfold = _exact(p.in_proj, wfold)
+        wfold = wfold.to(dt).contiguous()
+        table = C.to(dt)
+    else:
+        cp = _exact(rnd(C), rnd(p.in_proj)) if p.in_proj is not None else C
+        table = torch.cat([C, cp + _exact(rnd(cp), rnd(w1))], dim=1).to(dt)
+    sub_t, cn2 = _substep_operands(spec, p)
     return _SelectedWeights(
-        sub_t=sub.to(dt).float().t().contiguous(),
-        cn2=(sub * sub).sum(1),
-        table=p.codebook.to(dt).contiguous(),
-        wfold=wfold.to(dt).contiguous(),
+        sub_t=sub_t, cn2=cn2, table=table.contiguous(), wfold=wfold,
         w2=w2.to(dt).contiguous(),
         concat_b=p.concat_b.float().contiguous(),
         ffn_up=p.ffn_up.to(dt).contiguous(),
@@ -131,79 +207,71 @@ def _selected_weights(spec: QincoSpec, p) -> _SelectedWeights:
     )
 
 
-def _check_selected(spec: QincoSpec, x, xh, p, n_codes: int) -> int:
-    NF, D = xh.shape
+def _check_selected(spec: QincoSpec, x, xh, p, n_codes: int, vals) -> int:
     K = p.codebook.shape[0]
     if K > 256:
         raise ValueError("selected_scores requires K <= 256")
-    if n_codes > K:
-        # rounds beyond K would find every entry removed and fetch nothing
-        raise ValueError(f"in-kernel top-A requires n_codes <= K ({n_codes} > {K})")
     if n_codes < 1:
         raise ValueError("selected_scores requires n_codes >= 1")
-    if not spec.fast:
-        raise NotImplementedError(
-            "selected_scores ports the lean fetch of spec.fast only; the folded "
-            "table of the non-fast route is not ported yet (ROADMAP B2')")
+    if vals is None and n_codes > K:
+        # rounds beyond K would find every entry removed and fetch nothing
+        raise ValueError(f"in-kernel top-A requires n_codes <= K ({n_codes} > {K})")
     if p.concat_w2 is not None:
         raise ValueError("selected_scores takes no low-rank concat factor")
-    if x.dim() != 2 or x.shape[1] != D or NF % x.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)} must be (NF / F_in, D) for xh {tuple(xh.shape)}")
-    if x.dtype != torch.float32 or xh.dtype != torch.float32:
-        raise ValueError("x and xh must be float32")
-    if x.device != xh.device or p.codebook.device != xh.device:
-        raise ValueError("x, xh and the step weights must be on one device")
-    return NF // x.shape[0]
+    F_in = _check_rows("selected_scores", x, xh, p)
+    if vals is not None and (vals.shape != (xh.shape[0], n_codes)
+                             or vals.dtype != torch.float32 or vals.device != xh.device):
+        raise ValueError(f"vals must be packed float32 {(xh.shape[0], n_codes)} on xh's device")
+    return F_in
 
 
 def selected_scores_plain(
-    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int,
+    vals: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the selected-scores kernel.
 
     ``x (N, D)`` holds one target per vector, ``xh (N·F_in, D)`` the beam
-    rows (F_in per vector), ``p`` the step's :class:`StepParams`.  Returns
-    ``(N·F_in, n_codes)`` float32: for each row's n_codes nearest substep
-    codewords (exact, ascending, ties to the lower id), the squared
-    distance ‖r − MLP − cand‖² with the codeword id packed in."""
-    F_in = _check_selected(spec, x, xh, p, n_codes)
-    return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in)
+    rows (F_in per vector), ``p`` the step's :class:`StepParams`.  The
+    n_codes candidates of a row are its nearest substep codewords (exact,
+    ascending, ties to the lower id), or, with ``vals (N·F_in, n_codes)``,
+    the ids packed in those values (the external-vals route).  Returns
+    ``(N·F_in, n_codes)`` float32: the squared distance ‖r − MLP − cand‖²
+    of each candidate with its codeword id packed in."""
+    F_in = _check_selected(spec, x, xh, p, n_codes, vals)
+    return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in, vals)
 
 
-def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int):
+def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int, vals):
     rnd = rounder(spec)
-    K = w.cn2.shape[0]
+    D = xh.shape[1]
     r = x.repeat_interleave(F_in, dim=0) - xh  # (NF, D) residual target
-    d_sub = w.cn2[None, :] - 2.0 * (rnd(r) @ w.sub_t)  # (NF, K) partial
-    ids_k = torch.arange(K, dtype=torch.int32, device=xh.device)[None, :]
-    vals = torch.sort(pack_ids_f32(d_sub, ids_k), dim=1, stable=True).values
-    ids = unpack_ids(vals[:, :n_codes])  # (NF, A)
-    cand = w.table.float()[ids.long()]  # (NF, A, D), dt-valued
+    if vals is None:
+        packed = _substep_packed(spec, r, w.sub_t, w.cn2)
+        vals = torch.sort(packed, dim=1, stable=True).values[:, :n_codes]
+    ids = unpack_ids(vals)  # (NF, A)
+    tab = w.table.float()[ids.long()]  # (NF, A, Wt), dt-valued
+    cand = tab[..., :D]
     ccb = rnd(xh) @ w.w2.float() + w.concat_b  # (NF, De)
-    h = rnd(cand @ w.wfold.float() + ccb[:, None, :])
-    for l in range(spec.L):
-        up = rnd(torch.relu(h @ w.ffn_up[l].float()))
-        h = rnd(h + rnd(up @ w.ffn_down[l].float()))
-    out = h @ w.out_proj.float() if w.out_proj is not None else h
-    diff = r[:, None, :] - out
-    if spec.res_codeword_coeff:
-        diff = diff - cand
-    return pack_ids_f32((diff * diff).sum(-1), ids)
+    h_cand = cand @ w.wfold.float() if w.wfold is not None else tab[..., D:]
+    h = _ffn(spec, rnd(h_cand + ccb[:, None, :]), w.ffn_up, w.ffn_down)
+    return _score(spec, h, w.out_proj, r, cand, ids)
 
 
 def selected_scores(
-    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int,
+    vals: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Selected-scores kernel on a CUDA tensor, its plain version
     (:func:`selected_scores_plain`, same contract) on a CPU tensor."""
-    F_in = _check_selected(spec, x, xh, p, n_codes)
+    F_in = _check_selected(spec, x, xh, p, n_codes, vals)
     w = _selected_weights(spec, p)
     if xh.device.type == "cpu":
-        return _selected_scores_plain(spec, x, xh, w, n_codes, F_in)
+        return _selected_scores_plain(spec, x, xh, w, n_codes, F_in, vals)
     _require_cuda(xh)
     NF, D = xh.shape
-    K = w.cn2.shape[0]
-    De, Dh = w.wfold.shape[1], w.ffn_up.shape[2]
+    K, Wt = w.table.shape
+    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     _check_widths(D=D, De=De, Dh=Dh)
     R, A = _ROWS, n_codes
 
@@ -212,20 +280,266 @@ def selected_scores(
                     + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D))))
 
     tm = _pick_tile(smem)
-    x, xh = x.contiguous(), xh.contiguous()
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
-    lib = _lib("selected_scores", xh.device)
-    with torch.cuda.device(xh.device):
-        err = lib.qt_selected_scores(
-            _ptr(x), _ptr(xh), _ptr(w.sub_t), _ptr(w.cn2), _ptr(w.table),
-            _ptr(w.wfold), _ptr(w.w2), _ptr(w.concat_b), _ptr(w.ffn_up),
-            _ptr(w.ffn_down), _ptr(w.out_proj), _ptr(out),
-            NF, F_in, D, K, De, Dh, spec.L, A, tm, smem(tm),
-            int(_compute_dtype(spec) == torch.bfloat16), int(bool(spec.res_codeword_coeff)),
-            _stream(xh),
-        )
-    _raise_on(lib, err, "selected_scores")
-    LAUNCHES["selected_scores"] += 1
+    _launch("selected_scores", xh,
+            [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
+             w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
+             w.out_proj, out],
+            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, tm, smem(tm), _is_bf16(spec),
+             _res(spec)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B4: fused substep scores (binned argmin, the speed profile)
+# ---------------------------------------------------------------------------
+
+
+class _FusedWeights(NamedTuple):
+    sub_t: torch.Tensor  # (D, K) f32
+    cn2: torch.Tensor  # (K,) f32
+    table: torch.Tensor  # (K, Wt) dt: the fused per-codeword table
+    w2: torch.Tensor  # (D, Wc) dt: condition half of the concat weight
+    concat_w2: Optional[torch.Tensor]  # (Wc, De) dt: the low-rank factor
+    concat_b: torch.Tensor  # (De,) f32
+    ffn_up: torch.Tensor  # (L, De, Dh) dt
+    ffn_down: torch.Tensor  # (L, Dh, De) dt
+    out_proj: Optional[torch.Tensor]  # (De, D) dt
+    off_h: int  # column of the h-init slice
+    off_w1: int  # column of the W1 slice (== Wt: W1 folded into the h slice)
+    off_up: int  # column of the folded first up-projection (0: not folded)
+
+
+def _fused_weights(spec: QincoSpec, p) -> _FusedWeights:
+    """The operands of ``fused_substep_scores_pallas`` (:521-578): the
+    table is built in f32 and rounded once to the compute dtype.
+
+    - fold_up (the speed default): [C | h_cand | rnd(h_cand)·rnd(U_0)];
+    - folded W1 (``fold_up=False``): [C | h_cand];
+    - low rank (``concat_w2``): [C | cp | rnd(cp)·rnd(W1)], or
+      [C | C·W1] without in_proj;
+
+    with cp = rnd(C)·rnd(P) (C itself without in_proj) and
+    h_cand = cp + rnd(cp)·rnd(W1)."""
+    dt = _compute_dtype(spec)
+    rnd = rounder(spec)
+    D = spec.D
+    P = p.in_proj
+    h_w = P.shape[1] if P is not None else D
+    w1, w2 = p.concat_w[:h_w], p.concat_w[h_w:]
+    C = p.codebook.float()
+    cp = _exact(rnd(C), rnd(P)) if P is not None else C
+    cpw1 = _exact(rnd(cp), rnd(w1))
+    off_up = 0
+    if p.concat_w2 is None:
+        h_cand = cp + cpw1
+        pieces = [C, h_cand]
+        off_h, off_w1 = D, D + h_w
+        if spec.L >= 1 and spec.fold_up:
+            pieces.append(_exact(rnd(h_cand), rnd(p.ffn_up[0])))
+            off_up = off_w1
+    else:
+        pieces = [C] + ([cp] if P is not None else []) + [cpw1]
+        off_h = D if P is not None else 0
+        off_w1 = D + (h_w if P is not None else 0)
+    sub_t, cn2 = _substep_operands(spec, p)
+    return _FusedWeights(
+        sub_t=sub_t, cn2=cn2,
+        table=torch.cat(pieces, dim=1).to(dt).contiguous(),
+        w2=w2.to(dt).contiguous(),
+        concat_w2=None if p.concat_w2 is None else p.concat_w2.to(dt).contiguous(),
+        concat_b=p.concat_b.float().contiguous(),
+        ffn_up=p.ffn_up.to(dt).contiguous(),
+        ffn_down=p.ffn_down.to(dt).contiguous(),
+        out_proj=None if p.out_proj is None else p.out_proj.to(dt).contiguous(),
+        off_h=off_h, off_w1=off_w1, off_up=off_up,
+    )
+
+
+def _check_fused(spec: QincoSpec, x, xh, p, n_codes: int) -> int:
+    K, A = p.codebook.shape[0], n_codes
+    if K > 256 or A < 1 or K % A or K & (K - 1) or A & (A - 1):
+        raise ValueError(f"fused substep requires power-of-2 K <= 256, A | K (K={K}, A={A})")
+    return _check_rows("fused_substep_scores", x, xh, p)
+
+
+def fused_substep_scores_plain(
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused-substep kernel.
+
+    ``x (N, D)`` one target per vector, ``xh (N·F_in, D)`` the beam rows.
+    The K codewords split into n_codes contiguous bins of K/n_codes; slot
+    a of a row is the float minimum of bin a's packed substep distances
+    (so slots run in bin order, not ascending).  Returns ``(N·F_in,
+    n_codes)`` float32: ‖r − MLP − cand‖² of each slot's winner through
+    the fused table, with its id packed in.  ``spec.perbin`` selects a
+    TPU layout of the same function and has no effect here."""
+    F_in = _check_fused(spec, x, xh, p, n_codes)
+    return _fused_substep_plain(spec, x, xh, _fused_weights(spec, p), n_codes, F_in)
+
+
+def _fused_substep_plain(spec, x, xh, w: _FusedWeights, n_codes: int, F_in: int):
+    rnd = rounder(spec)
+    NF, D = xh.shape
+    K, Wt = w.table.shape
+    r = x.repeat_interleave(F_in, dim=0) - xh  # (NF, D) residual target
+    packed = _substep_packed(spec, r, w.sub_t, w.cn2)
+    vals = packed.view(NF, n_codes, K // n_codes).amin(dim=2)  # (NF, A) bin minima
+    ids = unpack_ids(vals)
+    tab = w.table.float()[ids.long()]  # (NF, A, Wt), dt-valued
+    cand = tab[..., :D]
+    cc_cond = rnd(xh) @ w.w2.float()  # (NF, Wc)
+    l0 = 0
+    if w.off_up:  # fold_up
+        ccb = cc_cond + w.concat_b
+        up_cond = rnd(ccb) @ w.ffn_up[0].float()
+        h = rnd(tab[..., w.off_h:w.off_up] + ccb[:, None, :])
+        up = rnd(torch.relu(tab[..., w.off_up:] + up_cond[:, None, :]))
+        h = rnd(h + rnd(up @ w.ffn_down[0].float()))
+        l0 = 1
+    elif w.off_w1 >= Wt:  # W1 folded into the h slice
+        h = rnd(tab[..., w.off_h:] + (cc_cond + w.concat_b)[:, None, :])
+    else:  # low rank
+        h = tab[..., w.off_h:w.off_w1] if w.off_h else cand
+        lr = rnd(tab[..., w.off_w1:] + cc_cond[:, None, :])
+        h = rnd(h + rnd(lr @ w.concat_w2.float() + w.concat_b))
+    h = _ffn(spec, h, w.ffn_up, w.ffn_down, l0)
+    return _score(spec, h, w.out_proj, r, cand, ids)
+
+
+def fused_substep_scores(
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int
+) -> torch.Tensor:
+    """Fused-substep kernel on a CUDA tensor, its plain version
+    (:func:`fused_substep_scores_plain`, same contract) on a CPU tensor."""
+    F_in = _check_fused(spec, x, xh, p, n_codes)
+    w = _fused_weights(spec, p)
+    if xh.device.type == "cpu":
+        return _fused_substep_plain(spec, x, xh, w, n_codes, F_in)
+    _require_cuda(xh)
+    NF, D = xh.shape
+    K, Wt = w.table.shape
+    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
+    _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
+    R, A = _ROWS, n_codes
+
+    def smem(tm):  # r, ccb, up_cond, bin minima, then the union of the phases' buffers
+        return 4 * (R * D + R * Wc + (R * Dh if w.off_up else 0) + R * A
+                    + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D, Wc))))
+
+    tm = _pick_tile(smem)
+    out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
+    _launch("fused_substep_scores", xh,
+            [x.contiguous(), xh.contiguous(), w.sub_t, w.cn2, w.table, w.w2, w.concat_w2,
+             w.concat_b, w.ffn_up, w.ffn_down, w.out_proj, out],
+            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, Wc, w.off_h, w.off_w1, w.off_up, tm,
+             smem(tm), _is_bf16(spec), _res(spec)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Weights of the unfolded step MLP (B3 and B5)
+# ---------------------------------------------------------------------------
+
+
+class _ChainWeights(NamedTuple):
+    in_proj: Optional[torch.Tensor]  # (D, De) dt
+    concat_w: torch.Tensor  # (De + D, Wc) dt
+    concat_w2: Optional[torch.Tensor]  # (Wc, De) dt
+    concat_b: torch.Tensor  # (De,) f32
+    ffn_up: torch.Tensor  # (L, De, Dh) dt
+    ffn_down: torch.Tensor  # (L, Dh, De) dt
+    out_proj: Optional[torch.Tensor]  # (De, D) dt
+
+
+def _chain_weights(spec: QincoSpec, p) -> _ChainWeights:
+    dt = _compute_dtype(spec)
+
+    def cast(a):
+        return None if a is None else a.to(dt).contiguous()
+
+    return _ChainWeights(cast(p.in_proj), cast(p.concat_w), cast(p.concat_w2),
+                         p.concat_b.float().contiguous(), cast(p.ffn_up), cast(p.ffn_down),
+                         cast(p.out_proj))
+
+
+def _chain_dims(spec: QincoSpec, w: _ChainWeights):
+    """(De, Dh, Wc, the low-rank scratch width) of the chain weights,
+    checked for the kernels' 4-wide loads."""
+    De, Dh, Wc = w.ffn_up.shape[1], w.ffn_up.shape[2], w.concat_w.shape[1]
+    _check_widths(D=spec.D, De=De, Dh=Dh, Wc=Wc)
+    return De, Dh, Wc, (Wc if w.concat_w2 is not None else 0)
+
+
+def _chain_ptrs(w: _ChainWeights):
+    return [w.in_proj, w.concat_w, w.concat_w2, w.concat_b, w.ffn_up, w.ffn_down, w.out_proj]
+
+
+# ---------------------------------------------------------------------------
+# B5: candidate scores (externally chosen ids, any K)
+# ---------------------------------------------------------------------------
+
+
+def _check_candidate(spec: QincoSpec, x, xh, idx, p, pack_ids: bool) -> None:
+    K = p.codebook.shape[0]
+    if pack_ids and K > 256:
+        raise ValueError(f"candidate_scores packs ids only for K <= 256 (K={K})")
+    if x.shape != xh.shape or x.dim() != 2 or x.shape[1] != spec.D:
+        raise ValueError(f"x {tuple(x.shape)} and xh {tuple(xh.shape)} must both be (NF, D)")
+    if idx.dim() != 2 or idx.shape[0] != xh.shape[0] or idx.dtype.is_floating_point:
+        raise ValueError(f"idx {tuple(idx.shape)} must be integer (NF, A)")
+    if x.dtype != torch.float32 or xh.dtype != torch.float32:
+        raise ValueError("x and xh must be float32")
+    if not x.device == xh.device == idx.device == p.codebook.device:
+        raise ValueError("x, xh, idx and the step weights must be on one device")
+
+
+def candidate_scores_plain(
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, idx: torch.Tensor, p,
+    pack_ids: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the candidate-scores kernel.
+
+    ``x, xh (NF, D)`` target and beam rows, ``idx (NF, A)`` codeword
+    ids.  Returns ``(NF, A)`` float32 ‖x − ((MLP(cand | xh) + cand) +
+    xh)‖², with cand the codeword rounded to the compute dtype (in the
+    MLP and in the QINCo2 ``+ cand``), ids packed in when ``pack_ids``
+    (K <= 256)."""
+    from ..models.qinco import step_predict
+
+    _check_candidate(spec, x, xh, idx, p, pack_ids)
+    cand = rounder(spec)(p.codebook)[idx.long()]  # (NF, A, D), dt-valued
+    diff = x[:, None, :] - (step_predict(spec, p, cand, xh) + xh[:, None, :])
+    d = (diff * diff).sum(-1)
+    return pack_ids_f32(d, idx) if pack_ids else d
+
+
+def candidate_scores(
+    spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, idx: torch.Tensor, p,
+    pack_ids: bool = False,
+) -> torch.Tensor:
+    """Candidate-scores kernel on a CUDA tensor, its plain version
+    (:func:`candidate_scores_plain`, same contract) on a CPU tensor."""
+    if xh.device.type == "cpu":
+        return candidate_scores_plain(spec, x, xh, idx, p, pack_ids)
+    _check_candidate(spec, x, xh, idx, p, pack_ids)
+    _require_cuda(xh)
+    w = _chain_weights(spec, p)
+    De, Dh, Wc, lr = _chain_dims(spec, w)
+    NF, A = idx.shape
+    D, K = spec.D, p.codebook.shape[0]
+
+    def smem(tm):  # cand, cond, h, the low-rank scratch, then [h0 | cond] / hidden / x − cand_abs
+        return 4 * tm * (2 * D + De + lr + max(De + D, Dh, D))
+
+    tm = _pick_tile(smem)
+    out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
+    _launch("candidate_scores", xh,
+            [x.contiguous(), xh.contiguous(), idx.to(torch.int32).contiguous(),
+             p.codebook.to(_compute_dtype(spec)).contiguous(), *_chain_ptrs(w), out],
+            [NF, A, D, K, De, Dh, spec.L, Wc, int(pack_ids), tm, smem(tm), _is_bf16(spec),
+             _res(spec)])
     return out
 
 
@@ -245,10 +559,6 @@ def _check_rebuild(spec: QincoSpec, dists, xh, p, A_eff: int, F_out: int) -> int
         raise ValueError(f"xh {tuple(xh.shape)} must be {(N * F_in, spec.D)}")
     if p.codebook.shape[0] > 256:
         raise ValueError("select_rebuild requires K <= 256 (packed ids)")
-    if p.concat_w2 is not None:
-        raise NotImplementedError(
-            "select_rebuild with a low-rank concat factor follows the candidate "
-            "route, which is not ported yet (ROADMAP B5)")
     if dists.dtype != torch.float32 or xh.dtype != torch.float32:
         raise ValueError("dists and xh must be float32")
     if dists.device != xh.device or p.codebook.device != xh.device:
@@ -265,19 +575,29 @@ def select_rebuild_plain(
     (N·F_in, D)`` f32.  Returns ``(xhat (N, F_out, D) f32, codes (N,
     F_out) int32, parents (N, F_out) int32)``, ascending; ties go to the
     lower position."""
-    from ..models.qinco import step_predict
-
-    F_in = _check_rebuild(spec, dists, xh, p, A_eff, F_out)
-    N, D = dists.shape[0], spec.D
+    _check_rebuild(spec, dists, xh, p, A_eff, F_out)
     vals, sel = torch.sort(dists, dim=1, stable=True)
     vals, sel = vals[:, :F_out], sel[:, :F_out]
     parents = (sel // A_eff).int()
     codes = unpack_ids(vals)
+    return rebuild_plain(spec, xh, p, codes, parents), codes, parents
+
+
+def rebuild_plain(spec: QincoSpec, xh: torch.Tensor, p, codes: torch.Tensor,
+                  parents: torch.Tensor) -> torch.Tensor:
+    """The reconstructions of chosen (parent, code) pairs: ``xh (N·F_in,
+    D)`` the beam rows, ``codes`` and ``parents (N, F_out)``.  Returns
+    ``(N, F_out, D)`` f32, the parent row plus the step MLP of the f32
+    codeword conditioned on it."""
+    from ..models.qinco import step_predict
+
+    N, F_out = codes.shape
+    F_in, D = xh.shape[0] // N, xh.shape[1]
     rows = (torch.arange(N, device=xh.device)[:, None] * F_in + parents).reshape(-1)
     xh_sel = xh[rows]  # (N·F_out, D)
     cand = p.codebook[codes.reshape(-1).long()]
     pred = step_predict(spec, p, cand[:, None, :], xh_sel)[:, 0]
-    return (pred + xh_sel).reshape(N, F_out, D), codes, parents
+    return (pred + xh_sel).reshape(N, F_out, D)
 
 
 def select_rebuild(
@@ -289,41 +609,24 @@ def select_rebuild(
         return select_rebuild_plain(spec, dists, xh, p, A_eff, F_out)
     F_in = _check_rebuild(spec, dists, xh, p, A_eff, F_out)
     _require_cuda(xh)
-    dt = _compute_dtype(spec)
+    w = _chain_weights(spec, p)
+    De, Dh, Wc, lr = _chain_dims(spec, w)
     N, C = dists.shape
     D, K = spec.D, p.codebook.shape[0]
-    De, Dh = p.ffn_up.shape[1], p.ffn_up.shape[2]
-    _check_widths(D=D, De=De, Dh=Dh)
     V = _VECS
 
-    def smem(tm):  # dists, codes, parents, then cand, cond, h and the union
-        return 4 * (V * C + 2 * V * F_out + tm * (2 * D + De + max(De + D, Dh, D)))
+    def smem(tm):  # dists, codes, parents, then cand, cond, h, low-rank scratch, the union
+        return 4 * (V * C + 2 * V * F_out + tm * (2 * D + De + lr + max(De + D, Dh, D)))
 
     tm = _pick_tile(smem)
-
-    def cast(a):
-        return None if a is None else a.to(dt).contiguous()
-
-    dists, xh = dists.contiguous(), xh.contiguous()
-    codebook = p.codebook.float().contiguous()
-    concat_b = p.concat_b.float().contiguous()
-    in_proj, concat_w, ffn_up, ffn_down, out_proj = (
-        cast(a) for a in (p.in_proj, p.concat_w, p.ffn_up, p.ffn_down, p.out_proj))
     xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
     codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
     parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
-    lib = _lib("select_rebuild", xh.device)
-    with torch.cuda.device(xh.device):
-        err = lib.qt_select_rebuild(
-            _ptr(dists), _ptr(xh), _ptr(codebook), _ptr(in_proj), _ptr(concat_w),
-            _ptr(concat_b), _ptr(ffn_up), _ptr(ffn_down), _ptr(out_proj),
-            _ptr(xhat), _ptr(codes), _ptr(parents),
-            N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, tm, smem(tm),
-            int(dt == torch.bfloat16), int(bool(spec.res_codeword_coeff)),
-            _stream(xh),
-        )
-    _raise_on(lib, err, "select_rebuild")
-    LAUNCHES["select_rebuild"] += 1
+    _launch("select_rebuild", xh,
+            [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
+             *_chain_ptrs(w), xhat, codes, parents],
+            [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, tm, smem(tm),
+             _is_bf16(spec), _res(spec)])
     return xhat, codes, parents
 
 
@@ -350,7 +653,7 @@ def _check_widths(**dims: int) -> None:
 
 def _pick_tile(smem) -> int:
     """The largest MLP row tile (64, 32 or 16 rows) whose shared memory
-    fits one block."""
+    fits one block; raises when none does."""
     for tm in (64, 32, 16):
         if smem(tm) <= _SMEM_LIMIT:
             return tm
@@ -358,21 +661,30 @@ def _pick_tile(smem) -> int:
         f"kernel shared memory {smem(16)} B exceeds {_SMEM_LIMIT} B even at a 16-row tile")
 
 
+def _is_bf16(spec: QincoSpec) -> int:
+    return int(_compute_dtype(spec) == torch.bfloat16)
+
+
+def _res(spec: QincoSpec) -> int:
+    return int(bool(spec.res_codeword_coeff))
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(t: torch.Tensor):
-    """The current stream of the tensor's device.  The wrappers call the
-    kernels with that device current, so the runtime's current device
-    stays PyTorch's."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
+def _launch(name: str, like: torch.Tensor, tensors: list, ints: list) -> None:
+    """Call ``qt_<name>`` on the current stream of ``like``'s device, with
+    that device current (so the runtime's current device stays PyTorch's);
+    raise on a launch error, count the launch."""
+    lib = _lib(name, like.device)
+    with torch.cuda.device(like.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(like.device).cuda_stream)
+        err = getattr(lib, f"qt_{name}")(*map(_ptr, tensors), *ints, stream)
     if err:
         msg = lib.qt_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
+    LAUNCHES[name] += 1
 
 
 def build_dir() -> Path:
@@ -406,7 +718,7 @@ def build() -> dict[str, str]:
     library that was already built."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, src in _SOURCES.items():
+    for name, (src, _, _) in _KERNELS.items():
         lib = _lib_path(name)
         if lib.exists():
             continue
@@ -414,18 +726,20 @@ def build() -> dict[str, str]:
         cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, lib)
-    reports = {}
+    reports, failed = {}, []
     for name, (proc, tmp, lib) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {_SOURCES[name]}:\n{log}")
+            failed.append(f"nvcc failed for {_KERNELS[name][0]}:\n{log}")
+            continue
         tmp.rename(lib)
         reports[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return reports
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib(name: str, device: torch.device) -> ctypes.CDLL:
@@ -438,13 +752,11 @@ def _lib(name: str, device: torch.device) -> ctypes.CDLL:
         return _LIBS[name]
     build()
     lib = ctypes.CDLL(str(_lib_path(name)))
-    if name == "selected_scores":
-        lib.qt_selected_scores.argtypes = [_P] * 12 + [_I] * 12 + [_P]
-        lib.qt_selected_scores.restype = _I
-    else:
-        lib.qt_select_rebuild.argtypes = [_P] * 12 + [_I] * 14 + [_P]
-        lib.qt_select_rebuild.restype = _I
-    lib.qt_error_string.argtypes = [_I]
+    _, n_ptr, n_int = _KERNELS[name]
+    fn = getattr(lib, f"qt_{name}")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.qt_error_string.argtypes = [ctypes.c_int]
     lib.qt_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib

@@ -1,4 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+selected scores (in-kernel top-A and external vals, lean and folded
+tables), select-rebuild (with and without a low-rank concat factor),
+fused-substep scores (each table layout) and candidate scores (packed
+with a low-rank factor, unpacked at K = 1024).
 
 Every case here needs a CUDA device and skips without one.  On a machine
 with a card (JAX is not needed):
@@ -44,11 +48,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _step(widths, dtype, seed, device):
+def _step(widths, dtype, seed, device, **kw):
     """One step's weights, with the zero-initialized concat and FFN-down
     weights randomized so that the MLP does something."""
-    spec = QincoSpec(M=2, pallas=True, fast=True, fused_select=True,
-                     compute_dtype=dtype, **widths)
+    fields = dict(M=2, pallas=True, fast=True, fused_select=True, compute_dtype=dtype)
+    spec = QincoSpec(**{**fields, **widths, **kw})
     g = torch.Generator().manual_seed(seed)
     p = init_params(spec, g, device="cpu").step(0)
     p = p._replace(**{
@@ -106,6 +110,113 @@ def test_select_rebuild_kernel_matches_plain(cuda, case, dtype):
     xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["select_rebuild"] == before + 1
+    xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, n_codes, F_out)
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(parents, parents_p)
+    if dtype == "float32":
+        torch.testing.assert_close(xhat, xhat_p, rtol=1e-5, atol=1e-4)
+    else:
+        err = (xhat - xhat_p).abs()
+        assert err.max() <= 5e-2 and err.mean() <= 1e-3, (err.max(), err.mean())
+
+
+def _check_scores(got, want, dtype):
+    assert got.shape == want.shape
+    same = kernels.unpack_ids(got) == kernels.unpack_ids(want)
+    assert same.float().mean() >= (0.995 if dtype == "float32" else 0.98)
+    rtol = 1e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_unpacked(got)[same].cpu(), _unpacked(want)[same].cpu(),
+                               rtol=rtol, atol=1e-4)
+
+
+# The fused-substep table layouts: fold_up (the speed default), W1 folded
+# into the h slice (fold_up off), and the low-rank concat factor.
+LAYOUTS = {"fold_up": {}, "folded_w1": dict(fold_up=False), "low_rank": dict(concat_rank=8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_fused_substep_kernel_matches_plain(cuda, layout, case, dtype):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, dtype, seed=5, device=cuda, fused_substep=True, **LAYOUTS[layout])
+    x, xh = _inputs(spec, F_in, N=70, seed=6, device=cuda)
+    before = kernels.LAUNCHES["fused_substep_scores"]
+    got = kernels.fused_substep_scores(spec, x, xh, p, n_codes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_substep_scores"] == before + 1
+    _check_scores(got, kernels.fused_substep_scores_plain(spec, x, xh, p, n_codes), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("table", ["lean", "folded"])
+def test_selected_scores_external_vals_kernel_matches_plain(cuda, table, case, dtype):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, dtype, seed=7, device=cuda, fast=table == "lean")
+    x, xh = _inputs(spec, F_in, N=70, seed=8, device=cuda)
+    r = x.repeat_interleave(F_in, 0) - xh
+    sub = p.sub_codebook
+    ids = torch.arange(spec.K, device=cuda)[None, :]
+    packed = kernels.pack_ids_f32((sub * sub).sum(1) - 2.0 * (r @ sub.T), ids)
+    vals = torch.sort(packed, dim=1, stable=True).values[:, :n_codes].contiguous()
+    before = kernels.LAUNCHES["selected_scores"]
+    got = kernels.selected_scores(spec, x, xh, p, n_codes, vals=vals)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selected_scores"] == before + 1
+    want = kernels.selected_scores_plain(spec, x, xh, p, n_codes, vals=vals)
+    assert torch.equal(kernels.unpack_ids(got), kernels.unpack_ids(vals))
+    _check_scores(got, want, dtype)
+
+
+# Candidate scores: packed ids with a low-rank concat factor, and K = 1024
+# (no packed ids).
+CANDIDATES = {"packed_low_rank": dict(concat_rank=8), "unpacked_K1024": dict(K=1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kind", sorted(CANDIDATES))
+def test_candidate_scores_kernel_matches_plain(cuda, kind, case, dtype):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, dtype, seed=9, device=cuda, **CANDIDATES[kind])
+    x, xh = _inputs(spec, F_in, N=70, seed=10, device=cuda)
+    x_f = x.repeat_interleave(F_in, 0)
+    g = torch.Generator().manual_seed(11)
+    idx = torch.randint(0, spec.K, xh.shape[:1] + (n_codes,), generator=g).int().to(cuda)
+    pack = spec.K <= 256
+    before = kernels.LAUNCHES["candidate_scores"]
+    got = kernels.candidate_scores(spec, x_f, xh, idx, p, pack_ids=pack)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["candidate_scores"] == before + 1
+    want = kernels.candidate_scores_plain(spec, x_f, xh, idx, p, pack_ids=pack)
+    if pack:
+        assert torch.equal(kernels.unpack_ids(got), idx)
+        got, want = _unpacked(got), _unpacked(want)
+    rtol = 1e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_select_rebuild_low_rank_kernel_matches_plain(cuda, case, dtype):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, dtype, seed=12, device=cuda, concat_rank=8)
+    x, xh = _inputs(spec, F_in, N=70, seed=13, device=cuda)
+    N = x.shape[0]
+    g = torch.Generator().manual_seed(14)
+    idx = torch.randint(0, spec.K, xh.shape[:1] + (n_codes,), generator=g).int().to(cuda)
+    dists = kernels.candidate_scores_plain(spec, x.repeat_interleave(F_in, 0), xh, idx, p,
+                                           pack_ids=True).reshape(N, F_in * n_codes)
+    if F_in > 1:  # ties: beam 1 repeats beam 0's packed values
+        dists[:, n_codes:2 * n_codes] = dists[:, :n_codes]
+    F_out = min(spec.B, F_in * n_codes)
+    xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
+    torch.cuda.synchronize()
     xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, n_codes, F_out)
     assert torch.equal(codes, codes_p)
     assert torch.equal(parents, parents_p)

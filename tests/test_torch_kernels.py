@@ -127,5 +127,8 @@ def test_kernels_refuse_what_they_do_not_take():
         kernels.select_rebuild(ts, torch.zeros((N, F_in * 4)), xh, tp0, 4, F_in * 4 + 1)
     with pytest.raises(ValueError):  # x rows do not divide xh rows
         kernels.selected_scores(ts, x[:5], xh, tp0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.selected_scores(ts.with_(fast=False), x, xh, tp0, 4)
+    with pytest.raises(ValueError, match="A | K"):  # binned argmin: A must divide K
+        kernels.fused_substep_scores(ts, x, xh, tp0, 3)
+    with pytest.raises(ValueError, match="K <= 256"):  # no packed ids past K = 256
+        kernels.candidate_scores(ts, xh, xh, torch.zeros((xh.shape[0], 4), dtype=torch.int32),
+                                 tp0._replace(codebook=torch.zeros((512, ts.D))), pack_ids=True)
