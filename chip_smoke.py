@@ -8,8 +8,11 @@
    card at the main paths' shapes (qinco2-S at N=1024 vectors: a normal
    step and the IVF first step) and at the qinco2-M widths (in/out
    projections, L=4), with the tolerances of ``tests/test_torch_cuda.py``;
-   one JSON line per kernel and shape with the median ms from CUDA
-   events, the plain version's ms and the bound:
+   one JSON line per kernel and shape with the median ms of one call
+   from CUDA events (``ms``) and of back-to-back calls (``ms_batch``,
+   where the wrapper's host work overlaps the previous call's kernel),
+   the plain version's ms, the bound, the achieved TFLOP/s and the
+   kernel's design (tensor cores or CUDA cores):
    - selected scores with the in-kernel top-A (parity profile) and with
      external vals (the f32 folded table of ``pallas=true``, the bf16
      lean table of ``fused_topa=false``); select-rebuild;
@@ -96,7 +99,8 @@ def check(ok, what: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median ms of ``fn()`` over ``reps`` runs, from CUDA events."""
+    """Median ms of ``fn()`` over ``reps`` runs, from CUDA events around
+    each call."""
     for _ in range(warmup):
         fn()
     times = []
@@ -108,6 +112,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def batch_ms(fn, calls: int = 10, windows: int = 5) -> float:
+    """Median over ``windows`` of the ms per call of ``calls`` back-to-back
+    calls of ``fn()`` between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def design(name: str, dtype: str) -> str:
+    """How the kernel computes its MLP products: selected scores and
+    select-rebuild run them on the tensor cores under bf16, every other
+    kernel and route in f32 on the CUDA cores."""
+    if dtype == "bfloat16" and name in ("selected_scores", "select_rebuild"):
+        return "tensor cores (mma.sync)"
+    return "cuda cores f32"
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -258,15 +287,17 @@ def compare_scores(label, got, want, dtype) -> float:
 
 def kernel_check(name, label, spec, run, plain, compare, work, **info) -> dict:
     """One kernel against its plain version at one shape: the comparison,
-    the kernel's and the plain version's median ms, the bound; one JSON
-    line."""
+    the kernel's and the plain version's median ms, the bound, the achieved
+    TFLOP/s; one JSON line."""
     got, want = run(), plain()
     err = compare(got, want)
     flops, nbytes = work
     b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
-    res = dict(name=name, shape=label, **info, max_abs_err=err, ms=time_ms(run),
-               plain_ms=time_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    ms = time_ms(run)
+    res = dict(name=name, shape=label, **info, design=design(name, spec.compute_dtype),
+               max_abs_err=err, ms=ms, ms_batch=batch_ms(run), plain_ms=time_ms(plain, reps=5),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9,
+               tflops=flops / ms / 1e9, mbytes=nbytes / 1e6)
     emit({"kernel_check": res})
     return res
 
@@ -547,7 +578,9 @@ def main() -> None:
         dict(name=k, route="cuda", source=src, replaces=replaces, launches=launches[k],
              max_abs_err=main_shape[k]["max_abs_err"], ms=main_shape[k]["ms"],
              plain_ms=main_shape[k]["plain_ms"], bound_ms=main_shape[k]["bound_ms"],
-             bound_by=main_shape[k]["bound_by"], library_ms=None)
+             bound_by=main_shape[k]["bound_by"], library_ms=None,
+             tflops=main_shape[k]["tflops"], design=main_shape[k]["design"],
+             ms_batch=main_shape[k]["ms_batch"])
         for k, (src, replaces) in SOURCES.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

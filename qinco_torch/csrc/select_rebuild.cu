@@ -18,21 +18,24 @@
 // What bounds it on the card: at qinco2-S a vector moves about 35 KB
 // (its 512 distances, its 32 beam rows and its 32 output rows) against
 // about 10.5 MFLOP, so at the bf16 tensor-core peak the bytes and the
-// operations take about as long; on the CUDA cores (f32, this version)
-// the operations bound it.  The kernel does some 15x less work than the
-// selected-scores kernel.
+// operations take about as long.
 //
-// What the design does about it, in this first version: a block owns 8
-// vectors, one warp each for the selection (a lane scan plus a warp
-// reduction on (value, position) per round), and runs the rebuild MLP on
-// the CUDA cores over tiles of TM (vector, beam) pairs in shared memory
-// (mlp_chain_tile, shared with the candidate-scores kernel).  The gathers
-// are plain indexed loads; nothing but the outputs is written.
-#include "common.cuh"
+// What the design does about it.  Both routes select with one warp per
+// vector (a lane scan plus a warp reduction on (value, position) per
+// round) and gather with plain indexed loads; nothing but the outputs is
+// written.  bf16: select_rebuild_tc_kernel, persistent blocks over work
+// items of V vectors (the wrapper picks V so that a launch has enough
+// items to fill the card), the rebuild MLP on the tensor cores (tc.cuh)
+// over tiles of TM (vector, beam) pairs, activations as bf16 in shared
+// memory, weights streamed through a cp.async ring; the f32 codeword and
+// parent row of the final sum are read again from device memory (L2).
+// f32: select_rebuild_kernel, 8 vectors per block, the chain on the CUDA
+// cores (mlp_chain_tile, shared with the candidate-scores kernel).
+#include "tc.cuh"
 
 namespace qt {
 
-constexpr int kVecs = 8;  // vectors per block, one selection warp each
+constexpr int kVecs = 8;  // vectors per block of the f32 kernel, one selection warp each
 
 struct RebuildArgs {
   const float* dists;     // (N, C) packed
@@ -43,34 +46,19 @@ struct RebuildArgs {
   int* codes;             // (N, F_out)
   int* parents;           // (N, F_out)
   int N, C, A_eff, F_in, F_out, K, res;
+  int V;                  // vectors per work item (tensor-core kernel)
 };
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs g) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int V = kVecs;
-  const int C = g.C, F_out = g.F_out, D = g.w.D, De = g.w.De;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int v0 = blockIdx.x * V;
-  const int n_vecs = min(V, g.N - v0);
-
-  float* d_s = smem;                                 // (V, C)
-  int* code_s = reinterpret_cast<int*>(d_s + V * C);  // (V, F_out)
-  int* par_s = code_s + V * F_out;                   // (V, F_out)
-  float* cand_s = reinterpret_cast<float*>(par_s + V * F_out);  // (TM, D) f32 codewords
-  float* cond_s = cand_s + TM * D;                   // (TM, D) f32 parent rows
-  float* h_s = cond_s + TM * D;                      // (TM, De)
-  float* lr_s = h_s + TM * De;                       // (TM, Wc) with the low-rank factor
-  float* cat_s = lr_s + (g.w.concat_w2 ? TM * g.w.Wc : 0);  // (TM, max(De + D, Dh, D))
-
-  for (int e = tid; e < V * C; e += kThreads)
-    d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
-  __syncthreads();
-
-  // ---- exact top-F_out per vector: (value, position) minimum per round,
-  // remove only that position, so equal packed values both survive and
-  // come out in position order.
-  for (int v = warp; v < V; v += kWarps) {
+// Exact top-F_out of the V vectors from v0 (n_vecs of them real) in d_s,
+// one warp a vector (a block of n_warps warps): (value, position) minimum
+// per round, remove only that position, so equal packed values both
+// survive and come out in position order.  Writes the codes and parents to
+// code_s / par_s and, for real vectors, to g.
+__device__ __forceinline__ void select_beams(const RebuildArgs& g, float* d_s, int* code_s,
+                                             int* par_s, int V, int v0, int n_vecs, int n_warps) {
+  const int C = g.C, F_out = g.F_out;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int v = warp; v < V; v += n_warps) {
     float* row = d_s + v * C;
     for (int j = 0; j < F_out; ++j) {
       float bv = CUDART_INF_F;
@@ -100,6 +88,30 @@ __global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs
       __syncwarp();
     }
   }
+}
+
+template <int TM, bool BF>
+__global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int V = kVecs;
+  const int C = g.C, F_out = g.F_out, D = g.w.D, De = g.w.De;
+  const int tid = threadIdx.x;
+  const int v0 = blockIdx.x * V;
+  const int n_vecs = min(V, g.N - v0);
+
+  float* d_s = smem;                                 // (V, C)
+  int* code_s = reinterpret_cast<int*>(d_s + V * C);  // (V, F_out)
+  int* par_s = code_s + V * F_out;                   // (V, F_out)
+  float* cand_s = reinterpret_cast<float*>(par_s + V * F_out);  // (TM, D) f32 codewords
+  float* cond_s = cand_s + TM * D;                   // (TM, D) f32 parent rows
+  float* h_s = cond_s + TM * D;                      // (TM, De)
+  float* lr_s = h_s + TM * De;                       // (TM, Wc) with the low-rank factor
+  float* cat_s = lr_s + (g.w.concat_w2 ? TM * g.w.Wc : 0);  // (TM, max(De + D, Dh, D))
+
+  for (int e = tid; e < V * C; e += kThreads)
+    d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
+  __syncthreads();
+  select_beams(g, d_s, code_s, par_s, V, v0, n_vecs, kWarps);
   __syncthreads();
 
   // ---- rebuild the (vector, beam) pairs, TM at a time; pair p = v * F_out + j
@@ -126,6 +138,181 @@ __global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs
   }
 }
 
+// Shared-memory layout of the tensor-core kernel (byte offsets), the same
+// arithmetic as rebuild_plan in qinco_torch/ops/kernels.py:
+//   stage table | dists (V, C) f32 | codes, parents (V, F_out) int32 |
+//   cat [h0 | rnd(cond)] (TM, De + D), later the FFN hidden (TM, Dh) |
+//   rnd(cand) (TM, D) for in_proj, later h (TM, De) | the low-rank
+//   product (TM, Wc) | the weight ring.  Activations in bf16.
+struct RebuildLayout {
+  unsigned d, code, par, cat, h, lr, ring, total;
+  __host__ __device__ RebuildLayout(const RebuildArgs& g, int TM) {
+    using tc::align16;
+    using tc::ld_of;
+    const size_t V = g.V, D = g.w.D, De = g.w.De, Dh = g.w.Dh;
+    const size_t cat_w = ld_of(De + D) > ld_of(Dh) ? ld_of(De + D) : ld_of(Dh);
+    const size_t h_w = ld_of(De > D ? De : D);
+    d = tc::kStageBytes;
+    code = d + align16(4 * V * g.C);
+    par = code + align16(4 * V * g.F_out);
+    cat = par + align16(4 * V * g.F_out);
+    h = cat + 2 * TM * cat_w;
+    lr = h + 2 * TM * h_w;
+    ring = lr + (g.w.concat_w2 ? 2 * TM * (size_t)ld_of(g.w.Wc) : 0);
+    total = ring + tc::kRingBytes;
+  }
+};
+
+// Products in the tensor-core kernel's weight stream.
+__host__ __device__ inline int rebuild_stages(const ChainWeights& w) {
+  return (w.in_proj ? 1 : 0) + 1 + (w.concat_w2 ? 1 : 0) + 2 * w.L + (w.out_proj ? 1 : 0);
+}
+
+// bf16 route: the rebuild MLP on the tensor cores.  A block walks the
+// work items blockIdx.x, blockIdx.x + gridDim.x, ...: V vectors each,
+// their V·F_out pairs in tiles of TM = 32·MT.
+template <int MT>
+__global__ void __launch_bounds__(tc::kTcThreads, 1) select_rebuild_tc_kernel(RebuildArgs g) {
+  using namespace tc;
+  constexpr int TM = 32 * MT;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ChainWeights& w = g.w;
+  const int C = g.C, F_out = g.F_out, D = w.D, De = w.De, Dh = w.Dh, Wc = w.Wc, V = g.V;
+  const int tid = threadIdx.x;
+  const RebuildLayout lay(g, TM);
+  float* d_s = reinterpret_cast<float*>(sm + lay.d);     // (V, C)
+  int* code_s = reinterpret_cast<int*>(sm + lay.code);   // (V, F_out)
+  int* par_s = reinterpret_cast<int*>(sm + lay.par);     // (V, F_out)
+  bf16* cat_b = reinterpret_cast<bf16*>(sm + lay.cat);   // (TM, De + D), then (TM, Dh)
+  bf16* h_b = reinterpret_cast<bf16*>(sm + lay.h);       // (TM, D) rnd(cand), then (TM, De)
+  bf16* lr_b = reinterpret_cast<bf16*>(sm + lay.lr);     // (TM, Wc)
+  const int ldc = ld_of(De + D), ldd = ld_of(D), ldh = ld_of(De > D ? De : D);
+  const int ldf = ld_of(Dh), ldr = ld_of(Wc);
+
+  // The weight stream, once per tile: [in_proj], concat, [concat_w2],
+  // (U_l, D_l) x L, [out_proj].
+  WStage* stages = reinterpret_cast<WStage*>(sm);
+  if (tid == 0) {
+    const bf16* up = static_cast<const bf16*>(w.ffn_up);
+    const bf16* down = static_cast<const bf16*>(w.ffn_down);
+    int n = 0;
+    if (w.in_proj) stages[n++] = {static_cast<const bf16*>(w.in_proj), D, De};
+    stages[n++] = {static_cast<const bf16*>(w.concat_w), De + D, Wc};
+    if (w.concat_w2) stages[n++] = {static_cast<const bf16*>(w.concat_w2), Wc, De};
+    for (int l = 0; l < w.L; ++l) {
+      stages[n++] = {up + (size_t)l * De * Dh, De, Dh};
+      stages[n++] = {down + (size_t)l * Dh * De, Dh, De};
+    }
+    if (w.out_proj) stages[n++] = {static_cast<const bf16*>(w.out_proj), De, D};
+  }
+  __syncthreads();
+  const int n_pairs = V * F_out, n_items = (g.N + V - 1) / V;
+  WeightRing ring;
+  ring.init(reinterpret_cast<bf16*>(sm + lay.ring), stages, 0, rebuild_stages(w),
+            (n_pairs + TM - 1) / TM);
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int v0 = item * V, n_vecs = min(V, g.N - v0), n_valid = n_vecs * F_out;
+    float* xo = g.xhat + (size_t)v0 * F_out * D;
+    // xh row of pair p's parent
+    auto row_of = [&](int p) { return ((size_t)(v0 + p / F_out) * g.F_in + par_s[p]); };
+    __syncthreads();  // the last item's readers of codes and parents are done
+    for (int e = tid; e < V * C; e += kTcThreads)
+      d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
+    __syncthreads();
+    select_beams(g, d_s, code_s, par_s, V, v0, n_vecs, kTcWarps);
+
+    for (int p0 = 0; p0 < n_pairs; p0 += TM) {
+      const int rows = max(0, min(TM, n_valid - p0));
+      __syncthreads();  // codes and parents are in; the last tile's readers are done
+      // the f32 codeword (rounded) and parent row (rounded into cat), 4
+      // columns a thread, 4 pairs of loads in flight
+      bf16* cand_dst = w.in_proj ? h_b : cat_b;
+      const int ld_cand = w.in_proj ? ldd : ldc;
+      for (int e0 = tid; e0 < rows * (D / 4); e0 += 4 * kTcThreads) {
+        float4 cv[4], hv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+          cv[u] = hv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < rows) {
+            const int p = p0 + t, code = code_s[p];
+            if (code < g.K) cv[u] = *reinterpret_cast<const float4*>(g.codebook + (size_t)code * D + c);
+            hv[u] = *reinterpret_cast<const float4*>(g.xh + (row_of(p) * D + c));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+          if (t >= rows) break;
+          st_bf2(cat_b + t * ldc + De + c, hv[u].x, hv[u].y);
+          st_bf2(cat_b + t * ldc + De + c + 2, hv[u].z, hv[u].w);
+          st_bf2(cand_dst + t * ld_cand + c, cv[u].x, cv[u].y);
+          st_bf2(cand_dst + t * ld_cand + c + 2, cv[u].z, cv[u].w);
+        }
+      }
+      const auto same = [](int, int, float v0, float v1) { return make_float2(v0, v1); };
+      // h0 = rnd(rnd(cand)·P) into cat[:, :De]
+      if (w.in_proj)
+        mma_stage_bf16<MT>(ring, h_b, ldd, D, De, rows, cat_b, ldc, nullptr, 0, same, NoLast{});
+      // h = rnd(h0 + rnd([h0 | c]·W (·W2) + b))
+      const auto bias = [&](int, int c, float v0, float v1) {
+        return make_float2(rnd<true>(v0 + w.concat_b[c]), rnd<true>(v1 + w.concat_b[c + 1]));
+      };
+      if (w.concat_w2) {
+        mma_stage_bf16<MT>(ring, cat_b, ldc, De + D, Wc, rows, lr_b, ldr, nullptr, 0, same,
+                           NoLast{});
+        mma_stage_bf16<MT>(ring, lr_b, ldr, Wc, De, rows, h_b, ldh, cat_b, ldc, bias, NoLast{});
+      } else {
+        mma_stage_bf16<MT>(ring, cat_b, ldc, De + D, De, rows, h_b, ldh, cat_b, ldc, bias,
+                           NoLast{});
+      }
+      ffn_stages<MT>(ring, h_b, ldh, cat_b, ldf, w.L, De, Dh, rows, NoLast{});
+      // xhat = (out + cand) + cond, from the f32 codeword and parent row
+      auto fin = [&](int t, int c, float o0, float o1) {
+        const int p = p0 + t, code = code_s[p];
+        const float2 hv = *reinterpret_cast<const float2*>(g.xh + row_of(p) * D + c);
+        if (g.res && code < g.K) {
+          const float2 cv = *reinterpret_cast<const float2*>(g.codebook + (size_t)code * D + c);
+          o0 += cv.x;
+          o1 += cv.y;
+        }
+        *reinterpret_cast<float2*>(xo + (size_t)p * D + c) = make_float2(o0 + hv.x, o1 + hv.y);
+      };
+      if (w.out_proj) {
+        mma_stage<MT>(ring, h_b, ldh, De, D, rows, fin);
+      } else {
+        __syncthreads();
+        for (int e0 = tid; e0 < rows * (D / 4); e0 += 4 * kTcThreads) {
+          float4 cv[4], hv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+            cv[u] = hv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (t < rows) {
+              const int p = p0 + t, code = code_s[p];
+              if (g.res && code < g.K)
+                cv[u] = *reinterpret_cast<const float4*>(g.codebook + (size_t)code * D + c);
+              hv[u] = *reinterpret_cast<const float4*>(g.xh + row_of(p) * D + c);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+            if (t >= rows) break;
+            const float2 o01 = ld_bf2(h_b + t * ldh + c), o23 = ld_bf2(h_b + t * ldh + c + 2);
+            // (out + cand) + cond; cand is 0 outside QINCo2 mode
+            *reinterpret_cast<float4*>(xo + (size_t)(p0 + t) * D + c) =
+                make_float4((o01.x + cv[u].x) + hv[u].x, (o01.y + cv[u].y) + hv[u].y,
+                            (o23.x + cv[u].z) + hv[u].z, (o23.y + cv[u].w) + hv[u].w);
+          }
+        }
+      }
+    }
+  }
+  ring.drain();
+}
+
 }  // namespace qt
 
 extern "C" int qt_select_rebuild(const float* dists, const float* xh, const float* codebook,
@@ -133,17 +320,27 @@ extern "C" int qt_select_rebuild(const float* dists, const float* xh, const floa
                                  const float* concat_b, const void* ffn_up, const void* ffn_down,
                                  const void* out_proj, float* xhat, int* codes, int* parents,
                                  int N, int C, int A_eff, int F_in, int F_out, int D, int K,
-                                 int De, int Dh, int L, int Wc, int tm, int smem, int bf16,
-                                 int res, void* stream) {
+                                 int De, int Dh, int L, int Wc, int tm, int vecs, int blocks,
+                                 int smem, int bf16, int res, void* stream) {
   using namespace qt;
   if (N == 0) return 0;
   const ChainWeights w{in_proj, concat_w, concat_w2, concat_b, ffn_up, ffn_down, out_proj,
                        D,       De,       Dh,        L,        Wc};
   const RebuildArgs a{dists, xh, codebook, w, xhat, codes, parents, N, C, A_eff, F_in, F_out,
-                      K,     res};
-  const int blocks = (N + kVecs - 1) / kVecs;
-  return static_cast<int>(dispatch_tile(tm, bf16, [&](auto TM, auto BF) {
-    return launch_kernel(select_rebuild_kernel<decltype(TM)::value, decltype(BF)::value>, blocks,
-                         smem, static_cast<cudaStream_t>(stream), a);
-  }));
+                      K,     res, vecs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (rebuild_stages(w) > tc::kMaxStages || (size_t)smem < RebuildLayout(a, tm).total || vecs < 1 ||
+        (tm != 64 && tm != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(tm == 128 ? tc::launch_tc(select_rebuild_tc_kernel<4>, blocks, smem, s, a)
+                                      : tc::launch_tc(select_rebuild_tc_kernel<2>, blocks, smem, s, a));
+  }
+  const int grid = (N + kVecs - 1) / kVecs;
+  switch (tm) {
+    case 64: return static_cast<int>(launch_kernel(select_rebuild_kernel<64, false>, grid, smem, s, a));
+    case 32: return static_cast<int>(launch_kernel(select_rebuild_kernel<32, false>, grid, smem, s, a));
+    case 16: return static_cast<int>(launch_kernel(select_rebuild_kernel<16, false>, grid, smem, s, a));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -24,6 +24,11 @@ its CUDA kernel (``qinco_torch/csrc/``) for a tensor on a CUDA device;
 there is no fallback from one to the other.  The kernels are compiled by
 ``nvcc`` at first use into ``build/qinco_torch_kernels/`` and loaded with
 ``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
+
+Under bf16, selected scores and select-rebuild run their MLP products on
+the tensor cores; :func:`selected_plan` and :func:`rebuild_plan` work out
+their launch (tile, rows or vectors per work item, shared memory, blocks)
+from the shapes alone.
 """
 
 from __future__ import annotations
@@ -37,14 +42,15 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models.spec import QincoSpec
 
 # name -> (source, pointer arguments, int arguments) of the C entry point
 # ``qt_<name>(pointers..., ints..., stream)``.
 _KERNELS = {
-    "selected_scores": ("selected_scores.cu", 13, 13),
-    "select_rebuild": ("select_rebuild.cu", 13, 15),
+    "selected_scores": ("selected_scores.cu", 13, 15),
+    "select_rebuild": ("select_rebuild.cu", 13, 17),
     "fused_substep_scores": ("fused_substep_scores.cu", 12, 17),
     "candidate_scores": ("candidate_scores.cu", 12, 13),
 }
@@ -58,7 +64,15 @@ _NVCC_FLAGS = [
 # Dynamic shared memory a block may use on sm_90 (232,448 bytes).
 _SMEM_LIMIT = 227 * 1024
 _ROWS = 32  # beam rows per selected / fused-substep block (kRows in the .cu)
-_VECS = 8  # vectors per select-rebuild block (one warp each)
+_VECS = 8  # vectors per select-rebuild block of the f32 kernel (one warp each)
+# The tensor-core kernels (csrc/tc.cuh): one block per SM, and a launch
+# should offer at least one work item per SM of an H100 SXM.
+_SMS = 132
+_MMA_TILES = (128, 64)  # MLP row tiles, largest first
+_MMA_WIDTH = 16  # every width is a multiple of the mma tile's 16
+_MMA_STAGES = 64  # tc::kMaxStages: products in one weight stream
+_STAGE_BYTES = _MMA_STAGES * 16  # tc::kStageBytes: the stage table
+_RING_BYTES = 3 * 32 * (128 + 8) * 2  # tc::kRingBytes: 3 slabs of 32 x 128 bf16, padded
 
 
 def _compute_dtype(spec: QincoSpec) -> torch.dtype:
@@ -272,21 +286,17 @@ def selected_scores(
     NF, D = xh.shape
     K, Wt = w.table.shape
     De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
-    _check_widths(D=D, De=De, Dh=Dh)
-    R, A = _ROWS, n_codes
-
-    def smem(tm):  # r, ccb, top-A values, then the union of the phases' buffers
-        return 4 * (R * D + R * De + R * A
-                    + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D))))
-
-    tm = _pick_tile(smem)
+    A = n_codes
+    stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
+    plan = selected_plan(NF, A, D, K, De, Dh, bf16=bool(_is_bf16(spec)), topa=vals is None,
+                         stages=stages, sms=_sm_count(xh.device))
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
     _launch("selected_scores", xh,
             [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
              w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
              w.out_proj, out],
-            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, tm, smem(tm), _is_bf16(spec),
-             _res(spec)])
+            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
+             plan.smem, _is_bf16(spec), _res(spec)])
     return out
 
 
@@ -609,25 +619,163 @@ def select_rebuild(
         return select_rebuild_plain(spec, dists, xh, p, A_eff, F_out)
     F_in = _check_rebuild(spec, dists, xh, p, A_eff, F_out)
     _require_cuda(xh)
+    bf16 = bool(_is_bf16(spec))
     w = _chain_weights(spec, p)
+    if bf16:
+        w = pad_rank(w)
     De, Dh, Wc, lr = _chain_dims(spec, w)
     N, C = dists.shape
     D, K = spec.D, p.codebook.shape[0]
-    V = _VECS
-
-    def smem(tm):  # dists, codes, parents, then cand, cond, h, low-rank scratch, the union
-        return 4 * (V * C + 2 * V * F_out + tm * (2 * D + De + lr + max(De + D, Dh, D)))
-
-    tm = _pick_tile(smem)
+    stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
+    plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr), stages=stages,
+                        sms=_sm_count(xh.device))
     xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
     codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
     parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
     _launch("select_rebuild", xh,
             [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
              *_chain_ptrs(w), xhat, codes, parents],
-            [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, tm, smem(tm),
-             _is_bf16(spec), _res(spec)])
+            [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, plan.tm, plan.per_item,
+             plan.blocks, plan.smem, int(bf16), _res(spec)])
     return xhat, codes, parents
+
+
+def pad_rank(w: _ChainWeights) -> _ChainWeights:
+    """The chain weights with the low-rank factor's rank padded with zeros
+    to a multiple of 16, the tensor cores' tile: the zero columns of
+    concat_w give products of exactly 0, which the zero rows of concat_w2
+    then add, so the function is unchanged."""
+    if w.concat_w2 is None or not w.concat_w.shape[1] % _MMA_WIDTH:
+        return w
+    pad = -w.concat_w.shape[1] % _MMA_WIDTH
+    return w._replace(concat_w=F.pad(w.concat_w, (0, pad)).contiguous(),
+                      concat_w2=F.pad(w.concat_w2, (0, 0, 0, pad)).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of selected scores (B2) and select-rebuild (B3)
+#
+# f32: the CUDA-core kernels, one block per 32 beam rows or 8 vectors, the
+# largest MLP tile whose shared memory fits.  bf16: the tensor-core
+# kernels, one block per SM walking the work items; a work item is R beam
+# rows (or V vectors), the most (up to 32 rows, or a tile's worth of
+# vectors) that still leaves _SMS items, so that every SM has work; the
+# MLP tile is the largest of _MMA_TILES whose shared memory fits, then R
+# (or V) shrinks until it fits.  The byte counts are those of
+# SelectedLayout and RebuildLayout in the .cu files.
+# ---------------------------------------------------------------------------
+
+
+class LaunchPlan(NamedTuple):
+    tm: int  # MLP row tile: (row, slot) or (vector, beam) pairs
+    per_item: int  # beam rows (B2) or vectors (B3) per block (f32) or work item (bf16)
+    smem: int  # dynamic shared memory of a block, bytes
+    items: int  # work items
+    blocks: int  # blocks launched
+    mma: bool  # tensor-core kernel (bf16) or CUDA-core kernel (f32)
+
+
+def _ld(width: int) -> int:
+    """Row stride (bf16 elements) of an activation buffer: tc::ld_of."""
+    return width + 8
+
+
+def _a16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _per_item(n: int, most: int) -> int:
+    """The largest power of 2 <= ``most`` that leaves at least _SMS work
+    items of ``n`` (1 when ``n`` is too small for that)."""
+    k = 1
+    while 2 * k <= most and -(-n // (2 * k)) >= _SMS:
+        k *= 2
+    return k
+
+
+def _check_mma(stages: int, **dims: int) -> None:
+    bad = {k: v for k, v in dims.items() if v % _MMA_WIDTH}
+    if bad:
+        raise ValueError(f"the bf16 tensor-core kernels need widths that are multiples of "
+                         f"{_MMA_WIDTH}, got {bad}")
+    if stages > _MMA_STAGES:
+        raise ValueError(f"the step MLP has {stages} products; the tensor-core kernels "
+                         f"stream at most {_MMA_STAGES}")
+
+
+def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa) -> int:
+    head = (_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A)
+            + 4 * tm * 16)  # r, ccb, top-A values, the distance partials
+    phase0 = 2 * _a16(R) * _ld(D)  # rnd(xh), R rows rounded up to 16
+    substep = _a16(4 * R * D) + 4 * K * (R + 1) if topa else 0
+    tiles = 2 * tm * (_ld(D) + _ld(De) + _ld(Dh))  # cand, h, FFN hidden
+    return head + _a16(max(phase0, substep, tiles)) + _RING_BYTES
+
+
+def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bool, topa: bool,
+                  stages: int, sms: int = _SMS) -> LaunchPlan:
+    """Launch plan of the selected-scores kernel for NF beam rows of A
+    slots (``stages``: the step MLP's products, the condition product
+    included); raises when no tile fits a block's shared memory."""
+    if not bf16:
+        _check_widths(D=D, De=De, Dh=Dh)
+        R = _ROWS
+
+        def smem(tm):  # r, ccb, top-A values, then the union of the phases' buffers
+            return 4 * (R * D + R * De + R * A
+                        + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D))))
+
+        tm = _pick_tile(smem)
+        blocks = -(-NF // R)
+        return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
+    _check_mma(stages, D=D, De=De, Dh=Dh)
+    for tm in _MMA_TILES:
+        R = _per_item(NF, _ROWS)
+        while R:
+            smem = _selected_mma_smem(R, tm, A, D, K, De, Dh, topa)
+            if smem <= _SMEM_LIMIT:
+                items = -(-NF // R)
+                return LaunchPlan(tm, R, smem, items, min(items, sms), True)
+            R //= 2
+    raise ValueError(f"selected_scores: no tile fits {_SMEM_LIMIT} B of shared memory "
+                     f"(D={D}, De={De}, Dh={Dh}, K={K}, A={A})")
+
+
+def _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
+    cat = 2 * tm * max(_ld(De + D), _ld(Dh))  # [h0 | rnd(cond)], later the FFN hidden
+    h = 2 * tm * _ld(max(De, D))  # rnd(cand) for in_proj, later h
+    lr = 2 * tm * _ld(Wc) if low_rank else 0
+    return (_STAGE_BYTES + _a16(4 * V * C) + 2 * _a16(4 * V * F_out) + cat + h + lr
+            + _RING_BYTES)
+
+
+def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, *, bf16: bool,
+                 low_rank: bool, stages: int, sms: int = _SMS) -> LaunchPlan:
+    """Launch plan of the select-rebuild kernel for N vectors of C packed
+    distances, F_out beams out (Wc: the concat layer's width, the padded
+    rank with a low-rank factor; ``stages``: the step MLP's products);
+    raises when no tile fits a block's shared memory."""
+    if not bf16:
+        V, lr = _VECS, (Wc if low_rank else 0)
+        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
+
+        def smem(tm):  # dists, codes, parents, then cand, cond, h, low-rank scratch, the union
+            return 4 * (V * C + 2 * V * F_out + tm * (2 * D + De + lr + max(De + D, Dh, D)))
+
+        tm = _pick_tile(smem)
+        blocks = -(-N // V)
+        return LaunchPlan(tm, V, smem(tm), blocks, blocks, False)
+    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    for tm in _MMA_TILES:
+        V = _per_item(N, max(1, tm // F_out))
+        while V:
+            smem = _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank)
+            if smem <= _SMEM_LIMIT:
+                items = -(-N // V)
+                return LaunchPlan(tm, V, smem, items, min(items, sms), True)
+            V //= 2
+    raise ValueError(f"select_rebuild: no tile fits {_SMEM_LIMIT} B of shared memory "
+                     f"(D={D}, De={De}, Dh={Dh}, C={C}, F_out={F_out})")
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +791,10 @@ def select_rebuild(
 def _require_cuda(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"kernels run on CUDA tensors (or the CPU plain versions), got {t.device}")
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_widths(**dims: int) -> None:

@@ -2,7 +2,8 @@
 selected scores (in-kernel top-A and external vals, lean and folded
 tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
-with a low-rank factor, unpacked at K = 1024).
+with a low-rank factor, unpacked at K = 1024); and the bf16 tensor-core
+kernels with a ragged last work item.
 
 Every case here needs a CUDA device and skips without one.  On a machine
 with a card (JAX is not needed):
@@ -28,13 +29,14 @@ from qinco_torch.ops import kernels
 
 # (widths, F_in, n_codes): a normal step, the IVF first step (F_in = 1,
 # n_codes = max(B, A)), at small widths, with in/out projections, and at
-# the qinco2-S and qinco2-M widths.
+# the qinco2-S, qinco2-M and qinco2-L widths.
 CASES = {
     "small": (dict(D=32, K=64, L=2, de=32, dh=64, A=8, B=8), 8, 8),
     "small_proj": (dict(D=32, K=64, L=1, de=48, dh=64, A=8, B=8), 8, 8),
     "S": (dict(D=128, K=256, L=2, de=128, dh=256, A=16, B=32), 32, 16),
     "S_ivf_first": (dict(D=128, K=256, L=2, de=128, dh=256, A=16, B=32), 1, 32),
     "M": (dict(D=128, K=256, L=4, de=384, dh=384, A=16, B=32), 32, 16),
+    "L": (dict(D=128, K=256, L=16, de=384, dh=384, A=16, B=32), 32, 16),
 }
 DTYPES = ("float32", "bfloat16")
 
@@ -50,13 +52,18 @@ def cuda():
 
 def _step(widths, dtype, seed, device, **kw):
     """One step's weights, with the zero-initialized concat and FFN-down
-    weights randomized so that the MLP does something."""
+    weights randomized (std 0.05) so that the MLP does something.  Past
+    L = 4 blocks the std shrinks as 0.05 * 4 / L: each block multiplies the
+    activations' scale by about 2 at 0.05, which at L = 16 would take them
+    to 1e4 and the distances to 1e8, where the summation order of the f32
+    products alone moves results past the tolerances below."""
     fields = dict(M=2, pallas=True, fast=True, fused_select=True, compute_dtype=dtype)
     spec = QincoSpec(**{**fields, **widths, **kw})
     g = torch.Generator().manual_seed(seed)
     p = init_params(spec, g, device="cpu").step(0)
+    std = 0.05 * min(1.0, 4 / spec.L)
     p = p._replace(**{
-        f: a + 0.05 * torch.randn(a.shape, generator=g)
+        f: a + std * torch.randn(a.shape, generator=g)
         for f, a in p._asdict().items() if a is not None and not a.any()
     })
     return spec, p._replace(**{f: None if a is None else a.to(device)
@@ -225,3 +232,31 @@ def test_select_rebuild_low_rank_kernel_matches_plain(cuda, case, dtype):
     else:
         err = (xhat - xhat_p).abs()
         assert err.max() <= 5e-2 and err.mean() <= 1e-3, (err.max(), err.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["S", "S_ivf_first", "M"])
+def test_bf16_kernels_ragged_last_work_item(cuda, case):
+    """N = 1029 vectors: select-rebuild's last work item (4 vectors at
+    qinco2-S, 2 at qinco2-M) holds 1 and leaves most of its tile empty, and
+    so does selected scores' at the IVF first step (4 beam rows an item);
+    both against their plain versions: scores as above, codes and parents
+    bit-equal, xhat within rtol 1e-2 of the output's scale.  (A bf16
+    rounding point that two summation orders resolve differently moves a
+    value by one bf16 unit, 2^-8 relative, and the MLP carries it on; at
+    |xhat| up to 40 that is more than the 5e-2 of the checks above.)"""
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "bfloat16", seed=15, device=cuda)
+    x, xh = _inputs(spec, F_in, N=1029, seed=16, device=cuda)
+    N = x.shape[0]
+    _check_scores(kernels.selected_scores(spec, x, xh, p, n_codes),
+                  kernels.selected_scores_plain(spec, x, xh, p, n_codes), "bfloat16")
+    dists = kernels.selected_scores_plain(spec, x, xh, p, n_codes).reshape(N, F_in * n_codes)
+    F_out = min(spec.B, F_in * n_codes)
+    xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
+    torch.cuda.synchronize()
+    xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, n_codes, F_out)
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(parents, parents_p)
+    scale = xhat_p.abs().max().item()
+    torch.testing.assert_close(xhat, xhat_p, rtol=1e-2, atol=1e-2 * scale)

@@ -113,7 +113,7 @@ ROUTES = {
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
-def test_unported_routes_raise(route):
+def test_routes_match_jax(route):
     """Each route that once raised NotImplementedError in the port now
     encodes on the CPU, with the JAX package's codes on >= 95% of
     entries."""
