@@ -16,9 +16,10 @@
    - selected scores with the in-kernel top-A (parity profile) and with
      external vals (the f32 folded table of ``pallas=true``, the bf16
      lean table of ``fused_topa=false``); select-rebuild;
-   - fused-substep scores (speed profile);
-   - candidate scores at K=1024 (unpacked) and at K=256 with a low-rank
-     concat factor (packed), and select-rebuild with that factor.
+   - fused-substep scores (speed profile; also its f32 route);
+   - candidate scores at K=1024 (unpacked; also at the qinco2-M widths and
+     its f32 route) and at K=256 with a low-rank concat factor (packed),
+     and select-rebuild with that factor.
 4. Path phase at qinco2-S, random weights and data from ``--seed`` (the
    data: decodes of random codes plus noise of std ``NOISE``, or
    ``SPEED_NOISE`` for the speed profile), through ``encode_chunked``
@@ -130,13 +131,10 @@ def batch_ms(fn, calls: int = 10, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def design(name: str, dtype: str) -> str:
-    """How the kernel computes its MLP products: selected scores and
-    select-rebuild run them on the tensor cores under bf16, every other
-    kernel and route in f32 on the CUDA cores."""
-    if dtype == "bfloat16" and name in ("selected_scores", "select_rebuild"):
-        return "tensor cores (mma.sync)"
-    return "cuda cores f32"
+def design(dtype: str) -> str:
+    """How a kernel computes its MLP products: every kernel runs them on
+    the tensor cores under bf16, and in f32 on the CUDA cores under f32."""
+    return "tensor cores (mma.sync)" if dtype == "bfloat16" else "cuda cores f32"
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -229,6 +227,15 @@ def rebuild_work(spec, N, F_in, A, F_out, esize, rank=None):
     return flops, nbytes
 
 
+def spec_of(preset, *extra, profile="parity"):
+    """The spec of a preset at D=128, with extra overrides and an encode
+    profile (none for profile=None)."""
+    overrides = [f"model_args={preset}", *extra]
+    if profile:
+        overrides.append(f"encode_profile={profile}")
+    return spec_from_cfg(load_config(overrides), D=128)
+
+
 def random_model(spec, seed: int, device):
     """Parameters from ``seed``: the zero-initialized concat and FFN-down
     weights randomized (else the MLP is a no-op), step codebooks scaled
@@ -294,7 +301,7 @@ def kernel_check(name, label, spec, run, plain, compare, work, **info) -> dict:
     flops, nbytes = work
     b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
     ms = time_ms(run)
-    res = dict(name=name, shape=label, **info, design=design(name, spec.compute_dtype),
+    res = dict(name=name, shape=label, **info, design=design(spec.compute_dtype),
                max_abs_err=err, ms=ms, ms_batch=batch_ms(run), plain_ms=time_ms(plain, reps=5),
                bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9,
                tflops=flops / ms / 1e9, mbytes=nbytes / 1e6)
@@ -518,12 +525,6 @@ def main() -> None:
         name: re.findall(r"Used \d+ registers|\d+ bytes spill stores", log)
         for name, log in reports.items()}})
 
-    def spec_of(preset, *extra, profile="parity"):
-        overrides = [f"model_args={preset}", *extra]
-        if profile:
-            overrides.append(f"encode_profile={profile}")
-        return spec_from_cfg(load_config(overrides), D=128)
-
     N, seed = 1024, args.seed
     s, m = spec_of("qinco2-S"), spec_of("qinco2-M")
     speed_s, speed_m = spec_of("qinco2-S", profile="speed"), spec_of("qinco2-M", profile="speed")
@@ -548,6 +549,14 @@ def main() -> None:
         device)["candidate_scores"]
     check_candidate(f"qinco2-S concat_rank={CONCAT_RANK}", s.with_(concat_rank=CONCAT_RANK),
                     N, s.B, s.A, seed, device)
+    check_candidate("qinco2-M widths K=1024", spec_of("qinco2-M", "K=1024"), N, m.B, m.A, seed,
+                    device)
+    # the f32 routes of B4 and B5: their CUDA-core kernels
+    check_fused("qinco2-S speed f32", speed_s.with_(compute_dtype="float32"), N, s.B, s.A, seed,
+                device)
+    check_candidate("qinco2-S widths K=1024 f32",
+                    spec_of("qinco2-S", "K=1024").with_(compute_dtype="float32"), N, s.B, s.A,
+                    seed, device)
 
     # (label, spec, scoring kernel, data noise, MSE bound and least code
     # agreement vs exact)

@@ -257,21 +257,6 @@ __device__ __forceinline__ void mlp_chain_tile(const ChainWeights& w, const floa
   }
 }
 
-// Calls f(integral_constant<int, TM>, bool_constant<BF>) for the MLP row
-// tile and dtype a wrapper chose; an unknown tile is an invalid value.
-template <typename F>
-cudaError_t dispatch_tile(int tm, int bf16, F&& f) {
-  using T64 = std::integral_constant<int, 64>;
-  using T32 = std::integral_constant<int, 32>;
-  using T16 = std::integral_constant<int, 16>;
-  switch (tm) {
-    case 64: return bf16 ? f(T64{}, std::true_type{}) : f(T64{}, std::false_type{});
-    case 32: return bf16 ? f(T32{}, std::true_type{}) : f(T32{}, std::false_type{});
-    case 16: return bf16 ? f(T16{}, std::true_type{}) : f(T16{}, std::false_type{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // Sets the kernel's dynamic shared memory and launches it on `stream`.
 template <typename Kernel, typename Args>
 cudaError_t launch_kernel(Kernel kernel, int blocks, int smem, cudaStream_t stream,

@@ -38,7 +38,7 @@
 // device memory.  f32 (pallas=true's external vals): selected_scores_kernel,
 // 32 rows per block, the MLP on the CUDA cores in f32 (mlp_stage), reading
 // the weights from L2: TF32 would be a different result.
-#include "tc.cuh"
+#include "step_tc.cuh"
 
 namespace qt {
 
@@ -171,53 +171,6 @@ __global__ void __launch_bounds__(kThreads, 1) selected_scores_kernel(SelectedAr
   }
 }
 
-// substep_tile (common.cuh) with the same sums in the same order, spread
-// over the tensor-core block: a thread takes two codewords and one of NG
-// groups of RH rows, so each rounded residual it reads from shared memory
-// (4 at a time) feeds two sums, and keeps 32 values of the substep
-// codebook in flight.  D is a multiple of 16.
-template <int RH, int NG>
-__device__ __forceinline__ void substep_tile_tc(const float* rr_s, int R, int D,
-                                                const float* sub_t, const float* cn2, int K,
-                                                float* S_s) {
-  const int KP = (K + 1) / 2;
-  for (int job = threadIdx.x; job < NG * KP; job += tc::kTcThreads) {
-    const int kp = job % KP, i0 = (job / KP) * RH, ka = 2 * kp, kb = min(2 * kp + 1, K - 1);
-    if (i0 >= R) continue;
-    float acc[2][RH];
-#pragma unroll
-    for (int i = 0; i < RH; ++i) acc[0][i] = acc[1][i] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      float ca[16], cb[16];
-#pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        ca[u] = __ldg(sub_t + (size_t)(d0 + u) * K + ka);
-        cb[u] = __ldg(sub_t + (size_t)(d0 + u) * K + kb);
-      }
-#pragma unroll
-      for (int i = 0; i < RH; ++i) {
-        const float4* q = reinterpret_cast<const float4*>(rr_s + (i0 + i) * D + d0);
-#pragma unroll
-        for (int u4 = 0; u4 < 4; ++u4) {
-          const float4 r = q[u4];
-          const float rv[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[0][i] = fmaf(ca[4 * u4 + j], rv[j], acc[0][i]);
-            acc[1][i] = fmaf(cb[4 * u4 + j], rv[j], acc[1][i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RH; ++i) {
-      if (i0 + i >= R) break;
-      S_s[ka * (R + 1) + i0 + i] = pack_id(cn2[ka] - 2.f * acc[0][i], ka);
-      if (kb > ka) S_s[kb * (R + 1) + i0 + i] = pack_id(cn2[kb] - 2.f * acc[1][i], kb);
-    }
-  }
-}
-
 // The exact top-A of the f32 kernel's phase 2, each warp taking its rows
 // (warp, warp + 8, warp + 16, warp + 24 of R <= 32) side by side.
 __device__ __forceinline__ void top_a_rows(const float* S_s, int R, int K, int A, float* val_s) {
@@ -255,11 +208,6 @@ __device__ __forceinline__ void top_a_rows(const float* S_s, int R, int K, int A
     }
   }
 }
-
-// Partial sums of the distance of a tile: 16 slots a pair row, one for each
-// (warp column, lane & 3) of the mma fragments, so each slot has one owner
-// and the sums keep a fixed order.
-constexpr int kScoreSlots = 16;
 
 // Shared-memory layout of the tensor-core kernel (byte offsets), the same
 // arithmetic as selected_plan in qinco_torch/ops/kernels.py:
@@ -347,29 +295,8 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(S
     const int row0 = item * R, n_rows = min(R, g.NF - row0), n_valid = n_rows * A;
     __syncthreads();  // the last item's readers of r, vals and the region are done
 
-    // ---- r = x - xh and rnd(xh), 4 columns a thread, 4 loads in flight
-    for (int e0 = tid; e0 < R * D / 4; e0 += 4 * kTcThreads) {
-      float4 xv[4], hv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = e0 + u * kTcThreads, i = e / (D / 4), c = 4 * (e - i * (D / 4));
-        xv[u] = hv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (e < R * D / 4 && i < n_rows) {
-          const int row = row0 + i;
-          hv[u] = *reinterpret_cast<const float4*>(g.xh + (size_t)row * D + c);
-          xv[u] = *reinterpret_cast<const float4*>(g.x + (size_t)(row / g.F_in) * D + c);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = e0 + u * kTcThreads, i = e / (D / 4), c = 4 * (e - i * (D / 4));
-        if (e >= R * D / 4) break;
-        st_bf2(xh_b + i * ldd + c, hv[u].x, hv[u].y);
-        st_bf2(xh_b + i * ldd + c + 2, hv[u].z, hv[u].w);
-        *reinterpret_cast<float4*>(r_s + i * D + c) =
-            make_float4(xv[u].x - hv[u].x, xv[u].y - hv[u].y, xv[u].z - hv[u].z, xv[u].w - hv[u].w);
-      }
-    }
+    // ---- r = x - xh and rnd(xh)
+    load_residuals(g.x, g.xh, row0, n_rows, R, D, g.F_in, r_s, xh_b, ldd);
     // ---- the condition half of the concat layer: ccb = rnd(xh)·W2 + b
     mma_stage<MT>(ring, xh_b, ldd, D, De, R, [&](int t, int c, float v0, float v1) {
       ccb_s[t * De + c] = v0 + g.concat_b[c];
@@ -386,15 +313,7 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(S
       // as in the f32 kernel (f32 on the CUDA cores, same order of sums)
       for (int e = tid; e < R * D; e += kTcThreads) rr_s[e] = rnd<true>(r_s[e]);
       __syncthreads();
-      constexpr int NG = kTcThreads / 128;  // row groups: 128 codeword pairs at K = 256
-      switch (R) {
-        case 32: substep_tile_tc<32 / NG, NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-        case 16: substep_tile_tc<16 / NG, NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-        case 8: substep_tile_tc<8 / NG, NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-        case 4: substep_tile_tc<(4 / NG > 0 ? 4 / NG : 1), NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-        case 2: substep_tile_tc<(2 / NG > 0 ? 2 / NG : 1), NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-        default: substep_tile_tc<1, NG>(rr_s, R, D, g.sub_t, g.cn2, K, S_s); break;
-      }
+      substep_rows(rr_s, R, D, g.sub_t, g.cn2, K, S_s);
       __syncthreads();
       top_a_rows(S_s, R, K, A, val_s);
     }
@@ -447,8 +366,7 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(S
           d0 -= cv.x;
           d1 -= cv.y;
         }
-        float* q = part_s + t * kScoreSlots + 4 * ((threadIdx.x >> 5) & 3) + (threadIdx.x & 3);
-        *q = fmaf(d1, d1, fmaf(d0, d0, *q));
+        add_score(part_s, t, d0, d1);
       };
       if (proj) {
         ffn_stages<MT>(ring, h_b, ldh, hid_b, ldf, g.L, De, Dh, rows, NoLast{});
@@ -473,12 +391,8 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(S
           }
       // ---- the slots' sums, packed with the slot's id
       for (int t = tid; t < rows; t += kTcThreads) {
-        const float* q = part_s + t * kScoreSlots;
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < kScoreSlots; ++j) s += q[j];
         const int p = p0 + t;
-        g.out[(size_t)row0 * A + p] = pack_id(s, unpack_id(val_s[p]));
+        g.out[(size_t)row0 * A + p] = pack_id(sum_score(part_s, t), unpack_id(val_s[p]));
       }
     }
   }

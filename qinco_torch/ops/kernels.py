@@ -25,10 +25,11 @@ there is no fallback from one to the other.  The kernels are compiled by
 ``nvcc`` at first use into ``build/qinco_torch_kernels/`` and loaded with
 ``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
 
-Under bf16, selected scores and select-rebuild run their MLP products on
-the tensor cores; :func:`selected_plan` and :func:`rebuild_plan` work out
-their launch (tile, rows or vectors per work item, shared memory, blocks)
-from the shapes alone.
+Under bf16 every kernel runs its MLP products on the tensor cores;
+:func:`selected_plan`, :func:`fused_plan`, :func:`candidate_plan` and
+:func:`rebuild_plan` work out their launch (tile, rows or vectors per
+work item, shared memory, blocks) from the shapes alone.  Under float32
+they are the CUDA-core kernels.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ from ..models.spec import QincoSpec
 _KERNELS = {
     "selected_scores": ("selected_scores.cu", 13, 15),
     "select_rebuild": ("select_rebuild.cu", 13, 17),
-    "fused_substep_scores": ("fused_substep_scores.cu", 12, 17),
-    "candidate_scores": ("candidate_scores.cu", 12, 13),
+    "fused_substep_scores": ("fused_substep_scores.cu", 12, 19),
+    "candidate_scores": ("candidate_scores.cu", 12, 15),
 }
 LAUNCHES = {name: 0 for name in _KERNELS}
 
@@ -65,6 +66,7 @@ _NVCC_FLAGS = [
 _SMEM_LIMIT = 227 * 1024
 _ROWS = 32  # beam rows per selected / fused-substep block (kRows in the .cu)
 _VECS = 8  # vectors per select-rebuild block of the f32 kernel (one warp each)
+_PAIRS = 256  # (row, slot) pairs per candidate-scores block of the f32 kernel
 # The tensor-core kernels (csrc/tc.cuh): one block per SM, and a launch
 # should offer at least one work item per SM of an H100 SXM.
 _SMS = 132
@@ -428,24 +430,56 @@ def fused_substep_scores(
     if xh.device.type == "cpu":
         return _fused_substep_plain(spec, x, xh, w, n_codes, F_in)
     _require_cuda(xh)
+    if _is_bf16(spec):
+        w = _pad_fused_rank(w)
+    plan = _fused_launch_plan(spec, xh, w, n_codes, p.in_proj is not None)
+    return _fused_launch(spec, x, xh, w, n_codes, F_in, plan)
+
+
+def _fused_layout(w: _FusedWeights) -> str:
+    return "fold_up" if w.off_up else "low_rank" if w.concat_w2 is not None else "folded"
+
+
+def _fused_launch_plan(spec: QincoSpec, xh, w: _FusedWeights, n_codes: int,
+                       in_proj: bool) -> LaunchPlan:
+    NF, D = xh.shape
+    K = w.table.shape[0]
+    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
+    layout, L = _fused_layout(w), spec.L
+    # W2 (and U_0) once per item, then the per-tile products, [out_proj]
+    stages = {"fold_up": 2 + 1 + 2 * (L - 1), "low_rank": 1 + 1 + 2 * L,
+              "folded": 1 + 2 * L}[layout] + (w.out_proj is not None)
+    return fused_plan(NF, n_codes, D, K, De, Dh, Wc, bf16=bool(_is_bf16(spec)), layout=layout,
+                      in_proj=in_proj, stages=stages, sms=_sm_count(xh.device))
+
+
+def _fused_launch(spec: QincoSpec, x, xh, w: _FusedWeights, n_codes: int, F_in: int,
+                  plan: LaunchPlan) -> torch.Tensor:
+    """Launch the fused-substep kernel on the device operands ``w`` with
+    ``plan``; returns the (NF, n_codes) output."""
     NF, D = xh.shape
     K, Wt = w.table.shape
     Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
-    _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
-    R, A = _ROWS, n_codes
-
-    def smem(tm):  # r, ccb, up_cond, bin minima, then the union of the phases' buffers
-        return 4 * (R * D + R * Wc + (R * Dh if w.off_up else 0) + R * A
-                    + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D, Wc))))
-
-    tm = _pick_tile(smem)
-    out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
+    out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
     _launch("fused_substep_scores", xh,
             [x.contiguous(), xh.contiguous(), w.sub_t, w.cn2, w.table, w.w2, w.concat_w2,
              w.concat_b, w.ffn_up, w.ffn_down, w.out_proj, out],
-            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, Wc, w.off_h, w.off_w1, w.off_up, tm,
-             smem(tm), _is_bf16(spec), _res(spec)])
+            [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, Wc, w.off_h, w.off_w1, w.off_up,
+             plan.tm, plan.per_item, plan.blocks, plan.smem, _is_bf16(spec), _res(spec)])
     return out
+
+
+def _pad_fused_rank(w: _FusedWeights) -> _FusedWeights:
+    """The fused operands with the low-rank factor's rank padded with zeros
+    to a multiple of 16 (as :func:`pad_rank`): zero columns at the end of
+    the table (its W1 slice is the last) and of w2, zero rows of
+    concat_w2; the function is unchanged."""
+    if w.concat_w2 is None or not w.w2.shape[1] % _MMA_WIDTH:
+        return w
+    pad = -w.w2.shape[1] % _MMA_WIDTH
+    return w._replace(table=F.pad(w.table, (0, pad)).contiguous(),
+                      w2=F.pad(w.w2, (0, pad)).contiguous(),
+                      concat_w2=F.pad(w.concat_w2, (0, 0, 0, pad)).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -536,20 +570,38 @@ def candidate_scores(
     _check_candidate(spec, x, xh, idx, p, pack_ids)
     _require_cuda(xh)
     w = _chain_weights(spec, p)
+    if _is_bf16(spec):
+        w = pad_rank(w)
+    book = p.codebook.to(_compute_dtype(spec)).contiguous()
+    plan = _candidate_launch_plan(spec, xh, idx, w)
+    return _candidate_launch(spec, x, xh, idx, book, w, pack_ids, plan)
+
+
+def _candidate_launch_plan(spec: QincoSpec, xh, idx, w: _ChainWeights) -> LaunchPlan:
     De, Dh, Wc, lr = _chain_dims(spec, w)
     NF, A = idx.shape
-    D, K = spec.D, p.codebook.shape[0]
+    # the condition half once per item, then [in_proj], the codeword half,
+    # [concat_w2], the FFN blocks, [out_proj] per tile
+    stages = (1 + (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L
+              + (w.out_proj is not None))
+    return candidate_plan(NF, A, spec.D, De, Dh, Wc, bf16=bool(_is_bf16(spec)),
+                          in_proj=w.in_proj is not None, low_rank=bool(lr), stages=stages,
+                          sms=_sm_count(xh.device))
 
-    def smem(tm):  # cand, cond, h, the low-rank scratch, then [h0 | cond] / hidden / x − cand_abs
-        return 4 * tm * (2 * D + De + lr + max(De + D, Dh, D))
 
-    tm = _pick_tile(smem)
+def _candidate_launch(spec: QincoSpec, x, xh, idx, book, w: _ChainWeights, pack_ids: bool,
+                      plan: LaunchPlan) -> torch.Tensor:
+    """Launch the candidate-scores kernel on the device operands (``book``
+    the (K, D) codebook in the compute dtype) with ``plan``; returns the
+    (NF, A) output."""
+    De, Dh, Wc, _ = _chain_dims(spec, w)
+    NF, A = idx.shape
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
     _launch("candidate_scores", xh,
-            [x.contiguous(), xh.contiguous(), idx.to(torch.int32).contiguous(),
-             p.codebook.to(_compute_dtype(spec)).contiguous(), *_chain_ptrs(w), out],
-            [NF, A, D, K, De, Dh, spec.L, Wc, int(pack_ids), tm, smem(tm), _is_bf16(spec),
-             _res(spec)])
+            [x.contiguous(), xh.contiguous(), idx.to(torch.int32).contiguous(), book,
+             *_chain_ptrs(w), out],
+            [NF, A, spec.D, book.shape[0], De, Dh, spec.L, Wc, int(pack_ids), plan.tm,
+             plan.per_item, plan.blocks, plan.smem, _is_bf16(spec), _res(spec)])
     return out
 
 
@@ -653,22 +705,24 @@ def pad_rank(w: _ChainWeights) -> _ChainWeights:
 
 
 # ---------------------------------------------------------------------------
-# Launch plans of selected scores (B2) and select-rebuild (B3)
+# Launch plans of the four kernels
 #
-# f32: the CUDA-core kernels, one block per 32 beam rows or 8 vectors, the
-# largest MLP tile whose shared memory fits.  bf16: the tensor-core
-# kernels, one block per SM walking the work items; a work item is R beam
-# rows (or V vectors), the most (up to 32 rows, or a tile's worth of
-# vectors) that still leaves _SMS items, so that every SM has work; the
-# MLP tile is the largest of _MMA_TILES whose shared memory fits, then R
-# (or V) shrinks until it fits.  The byte counts are those of
-# SelectedLayout and RebuildLayout in the .cu files.
+# f32: the CUDA-core kernels, one block per 32 beam rows (B2, B4), 256
+# (row, slot) pairs (B5) or 8 vectors (B3), the largest MLP tile whose
+# shared memory fits.  bf16: the tensor-core kernels, one block per SM
+# walking the work items; a work item is R beam rows (or V vectors), the
+# most (up to 32 rows, or a tile's worth of vectors) that still leaves
+# _SMS items, so that every SM has work; the MLP tile is the largest of
+# _MMA_TILES whose shared memory fits, then R (or V) shrinks until it
+# fits.  The byte counts are those of SelectedLayout, FusedLayout,
+# CandidateLayout and RebuildLayout in the .cu files.
 # ---------------------------------------------------------------------------
 
 
 class LaunchPlan(NamedTuple):
     tm: int  # MLP row tile: (row, slot) or (vector, beam) pairs
-    per_item: int  # beam rows (B2) or vectors (B3) per block (f32) or work item (bf16)
+    per_item: int  # beam rows (B2, B4, bf16 B5), vectors (B3) or pairs (f32 B5) per
+    #                block (f32) or work item (bf16)
     smem: int  # dynamic shared memory of a block, bytes
     items: int  # work items
     blocks: int  # blocks launched
@@ -703,6 +757,22 @@ def _check_mma(stages: int, **dims: int) -> None:
                          f"stream at most {_MMA_STAGES}")
 
 
+def _mma_plan(name: str, n: int, most, smem_of, sms: int, dims: str) -> LaunchPlan:
+    """The tensor-core plan for ``n`` rows (or vectors): for each tile of
+    _MMA_TILES, largest first, ``most(tm)`` rows a work item (fewer when
+    that leaves fewer than _SMS items), halved until ``smem_of(rows, tm)``
+    fits; raises when nothing fits."""
+    for tm in _MMA_TILES:
+        per = _per_item(n, most(tm))
+        while per:
+            smem = smem_of(per, tm)
+            if smem <= _SMEM_LIMIT:
+                items = -(-n // per)
+                return LaunchPlan(tm, per, smem, items, min(items, sms), True)
+            per //= 2
+    raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory ({dims})")
+
+
 def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa) -> int:
     head = (_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A)
             + 4 * tm * 16)  # r, ccb, top-A values, the distance partials
@@ -729,16 +799,88 @@ def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bo
         blocks = -(-NF // R)
         return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
     _check_mma(stages, D=D, De=De, Dh=Dh)
-    for tm in _MMA_TILES:
-        R = _per_item(NF, _ROWS)
-        while R:
-            smem = _selected_mma_smem(R, tm, A, D, K, De, Dh, topa)
-            if smem <= _SMEM_LIMIT:
-                items = -(-NF // R)
-                return LaunchPlan(tm, R, smem, items, min(items, sms), True)
-            R //= 2
-    raise ValueError(f"selected_scores: no tile fits {_SMEM_LIMIT} B of shared memory "
-                     f"(D={D}, De={De}, Dh={Dh}, K={K}, A={A})")
+    return _mma_plan("selected_scores", NF, lambda tm: _ROWS,
+                     lambda R, tm: _selected_mma_smem(R, tm, A, D, K, De, Dh, topa), sms,
+                     f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}")
+
+
+def _chain_tiles(tm, D, De, Dh, Wc, h0: bool, low_rank: bool) -> int:
+    """Bytes of the per-tile bf16 buffers of B4 and B5: cand (tm, D), h
+    (tm, De) and one buffer that holds h0 (tm, De) and the low-rank product
+    (tm, Wc), later the FFN hidden (tm, Dh)."""
+    h0_lr = (_ld(De) if h0 else 0) + (_ld(Wc) if low_rank else 0)
+    return 2 * tm * (_ld(D) + _ld(De) + max(_ld(Dh), h0_lr))
+
+
+def _fused_mma_smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj) -> int:
+    fold_up, low_rank = layout == "fold_up", layout == "low_rank"
+    head = (_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * Wc)
+            + (_a16(4 * R * Dh) if fold_up else 0) + _a16(4 * R * A)
+            + 4 * tm * 16)  # r, ccb, up_cond, bin minima, the distance partials
+    phase0 = 2 * _a16(R) * (_ld(D) + (_ld(Wc) if fold_up else 0))  # rnd(xh), rnd(ccb)
+    substep = _a16(4 * R * D) + 4 * K * (R + 1)
+    tiles = _chain_tiles(tm, D, De, Dh, Wc, low_rank and in_proj, low_rank)
+    return head + _a16(max(phase0, substep, tiles)) + _RING_BYTES
+
+
+_FUSED_LAYOUTS = ("fold_up", "folded", "low_rank")
+
+
+def fused_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, Wc: int, *, bf16: bool,
+               layout: str, in_proj: bool, stages: int, sms: int = _SMS) -> LaunchPlan:
+    """Launch plan of the fused-substep kernel for NF beam rows of A bins
+    (``layout``: the table's, one of fold_up, folded or low_rank; Wc: the
+    concat layer's width, the padded rank with a low-rank factor;
+    ``stages``: the step MLP's products, the per-row ones included); raises
+    when no tile fits a block's shared memory."""
+    if layout not in _FUSED_LAYOUTS:
+        raise ValueError(f"layout must be one of {_FUSED_LAYOUTS}, got {layout!r}")
+    if not bf16:
+        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
+        R = _ROWS
+
+        def smem(tm):  # r, ccb, up_cond, bin minima, then the union of the phases' buffers
+            return 4 * (R * D + R * Wc + (R * Dh if layout == "fold_up" else 0) + R * A
+                        + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D, Wc))))
+
+        tm = _pick_tile(smem)
+        blocks = -(-NF // R)
+        return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
+    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    return _mma_plan("fused_substep_scores", NF, lambda tm: _ROWS,
+                     lambda R, tm: _fused_mma_smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj),
+                     sms, f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}, {layout}")
+
+
+def _candidate_mma_smem(R, tm, A, D, De, Dh, Wc, in_proj, low_rank) -> int:
+    head = (_STAGE_BYTES + 2 * _a16(4 * R * D) + _a16(4 * R * Wc) + _a16(4 * R * A)
+            + 4 * tm * 16)  # x, xh, the condition half, ids, the distance partials
+    phase0 = 2 * _a16(R) * _ld(D)  # rnd(xh)
+    tiles = _chain_tiles(tm, D, De, Dh, Wc, in_proj, low_rank)
+    return head + _a16(max(phase0, tiles)) + _RING_BYTES
+
+
+def candidate_plan(NF: int, A: int, D: int, De: int, Dh: int, Wc: int, *, bf16: bool,
+                   in_proj: bool, low_rank: bool, stages: int, sms: int = _SMS) -> LaunchPlan:
+    """Launch plan of the candidate-scores kernel for NF rows of A ids (Wc:
+    the concat layer's width, the padded rank with a low-rank factor;
+    ``stages``: the step MLP's products, the per-row condition product
+    included); raises when no tile fits a block's shared memory."""
+    if not bf16:
+        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
+        lr = Wc if low_rank else 0
+
+        def smem(tm):  # cand, cond, h, the low-rank scratch, then [h0 | cond] / hidden / x − cand_abs
+            return 4 * tm * (2 * D + De + lr + max(De + D, Dh, D))
+
+        tm = _pick_tile(smem)
+        blocks = -(-NF * A // _PAIRS)
+        return LaunchPlan(tm, _PAIRS, smem(tm), blocks, blocks, False)
+    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    return _mma_plan("candidate_scores", NF, lambda tm: _ROWS,
+                     lambda R, tm: _candidate_mma_smem(R, tm, A, D, De, Dh, Wc, in_proj,
+                                                       low_rank),
+                     sms, f"D={D}, De={De}, Dh={Dh}, Wc={Wc}, A={A}")
 
 
 def _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
@@ -766,16 +908,9 @@ def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, 
         blocks = -(-N // V)
         return LaunchPlan(tm, V, smem(tm), blocks, blocks, False)
     _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
-    for tm in _MMA_TILES:
-        V = _per_item(N, max(1, tm // F_out))
-        while V:
-            smem = _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank)
-            if smem <= _SMEM_LIMIT:
-                items = -(-N // V)
-                return LaunchPlan(tm, V, smem, items, min(items, sms), True)
-            V //= 2
-    raise ValueError(f"select_rebuild: no tile fits {_SMEM_LIMIT} B of shared memory "
-                     f"(D={D}, De={De}, Dh={Dh}, C={C}, F_out={F_out})")
+    return _mma_plan("select_rebuild", N, lambda tm: max(1, tm // F_out),
+                     lambda V, tm: _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank),
+                     sms, f"D={D}, De={De}, Dh={Dh}, C={C}, F_out={F_out}")
 
 
 # ---------------------------------------------------------------------------

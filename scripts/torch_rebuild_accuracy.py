@@ -22,30 +22,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 from test_torch_cuda import CASES, _inputs, _step  # noqa: E402
+from torch_exact import rebuild_exact  # noqa: E402
 
 from qinco_torch.ops import kernels  # noqa: E402
-
-
-def _mm(a, b):
-    return (a.double() @ b.double()).float()
-
-
-def predict_exact(spec, p, cand, cond):
-    """step_predict with products summed exactly (float64)."""
-    rnd = kernels.rounder(spec)
-    h = rnd(cand)
-    cond_b = rnd(cond.unsqueeze(-2).expand(cand.shape))
-    if p.in_proj is not None:
-        h = rnd(_mm(h, rnd(p.in_proj)))
-    cc = _mm(torch.cat([h, cond_b], -1), rnd(p.concat_w))
-    if p.concat_w2 is not None:
-        cc = _mm(rnd(cc), rnd(p.concat_w2))
-    h = rnd(h + rnd(cc + p.concat_b))
-    for l in range(spec.L):
-        up = rnd(torch.relu(_mm(h, rnd(p.ffn_up[l]))))
-        h = rnd(h + rnd(_mm(up, rnd(p.ffn_down[l]))))
-    out = _mm(h, rnd(p.out_proj)) if p.out_proj is not None else h
-    return out + cand.float() if spec.res_codeword_coeff else out
 
 
 def _stats(e: torch.Tensor) -> str:
@@ -67,9 +46,7 @@ def main() -> None:
         F_out = min(spec.B, F_in * n_codes)
         xk, ck, pk = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
         xp, cp, pp = kernels.select_rebuild_plain(spec, dists, xh, p, n_codes, F_out)
-        rows = (torch.arange(N, device=dev)[:, None] * F_in + pp).reshape(-1)
-        cand = p.codebook[cp.reshape(-1).long()][:, None, :]
-        xe = (predict_exact(spec, p, cand, xh[rows])[:, 0] + xh[rows]).reshape(xp.shape)
+        xe = rebuild_exact(spec, p, xh, cp, pp)
         same = torch.equal(ck, cp) and torch.equal(pk, pp)
         print(f"{case}: codes and parents equal {same}; kernel-plain {_stats((xk - xp).abs())}; "
               f"plain-exact {_stats((xp - xe).abs())}; kernel-exact {_stats((xk - xe).abs())}",

@@ -3,7 +3,8 @@ selected scores (in-kernel top-A and external vals, lean and folded
 tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
 with a low-rank factor, unpacked at K = 1024); and the bf16 tensor-core
-kernels with a ragged last work item.
+kernels with a ragged last work item.  Under bf16 every kernel is its
+tensor-core route.
 
 Every case here needs a CUDA device and skips without one.  On a machine
 with a card (JAX is not needed):
@@ -16,7 +17,9 @@ rebuilt reconstructions get atol 1e-4 rather than 1e-5 because at the
 qinco2-M widths each passes through six products of up to 512 terms.  At
 bfloat16 a different summation order can flip a value that sits on a bf16
 rounding point by one unit in the last place (2^-8 relative), and the
-flip propagates through the rest of the MLP; the checks allow that.
+flip propagates through the rest of the MLP.  The scores' checks allow
+that; the bf16 reconstructions of select-rebuild are held, with the
+plain version's, against sums exact to float64 (``torch_exact``).
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 from qinco_torch.models.params import init_params
 from qinco_torch.models.spec import QincoSpec
 from qinco_torch.ops import kernels
+from torch_exact import assert_near_exact, rebuild_exact
 
 # (widths, F_in, n_codes): a normal step, the IVF first step (F_in = 1,
 # n_codes = max(B, A)), at small widths, with in/out projections, and at
@@ -105,6 +109,10 @@ def test_selected_scores_kernel_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_select_rebuild_kernel_matches_plain(cuda, case, dtype):
+    """Codes and parents bit-equal to the plain version's; the
+    reconstructions at f32 within the summation order of 512-term sums,
+    at bf16 no further from exact sums than the plain version's, up to
+    ``torch_exact``'s multiples."""
     widths, F_in, n_codes = CASES[case]
     spec, p = _step(widths, dtype, seed=3, device=cuda)
     x, xh = _inputs(spec, F_in, N=70, seed=4, device=cuda)
@@ -123,8 +131,7 @@ def test_select_rebuild_kernel_matches_plain(cuda, case, dtype):
     if dtype == "float32":
         torch.testing.assert_close(xhat, xhat_p, rtol=1e-5, atol=1e-4)
     else:
-        err = (xhat - xhat_p).abs()
-        assert err.max() <= 5e-2 and err.mean() <= 1e-3, (err.max(), err.mean())
+        assert_near_exact(xhat, xhat_p, rebuild_exact(spec, p, xh, codes_p, parents_p))
 
 
 def _check_scores(got, want, dtype):
@@ -230,8 +237,7 @@ def test_select_rebuild_low_rank_kernel_matches_plain(cuda, case, dtype):
     if dtype == "float32":
         torch.testing.assert_close(xhat, xhat_p, rtol=1e-5, atol=1e-4)
     else:
-        err = (xhat - xhat_p).abs()
-        assert err.max() <= 5e-2 and err.mean() <= 1e-3, (err.max(), err.mean())
+        assert_near_exact(xhat, xhat_p, rebuild_exact(spec, p, xh, codes_p, parents_p))
 
 
 @pytest.mark.cuda
@@ -260,3 +266,43 @@ def test_bf16_kernels_ragged_last_work_item(cuda, case):
     assert torch.equal(parents, parents_p)
     scale = xhat_p.abs().max().item()
     torch.testing.assert_close(xhat, xhat_p, rtol=1e-2, atol=1e-2 * scale)
+
+
+# The ragged cases of the bf16 scoring kernels: N = 1029 vectors.  At the
+# IVF first step (F_in = 1, 4 beam rows an item) the last work item holds 1
+# row, 32 of its 128 pairs (and at the qinco2-M widths one 64-pair tile of
+# two, the other empty); at a normal step the rows fill their items.
+RAGGED = ["S", "S_ivf_first", "M"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_bf16_fused_substep_ragged_last_work_item(cuda, layout, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "bfloat16", seed=17, device=cuda, fused_substep=True,
+                    **LAYOUTS[layout])
+    x, xh = _inputs(spec, F_in, N=1029, seed=18, device=cuda)
+    got = kernels.fused_substep_scores(spec, x, xh, p, n_codes)
+    torch.cuda.synchronize()
+    _check_scores(got, kernels.fused_substep_scores_plain(spec, x, xh, p, n_codes), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("kind", sorted(CANDIDATES))
+def test_bf16_candidate_ragged_last_work_item(cuda, kind, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "bfloat16", seed=19, device=cuda, **CANDIDATES[kind])
+    x, xh = _inputs(spec, F_in, N=1029, seed=20, device=cuda)
+    x_f = x.repeat_interleave(F_in, 0)
+    g = torch.Generator().manual_seed(21)
+    idx = torch.randint(0, spec.K, xh.shape[:1] + (n_codes,), generator=g).int().to(cuda)
+    pack = spec.K <= 256
+    got = kernels.candidate_scores(spec, x_f, xh, idx, p, pack_ids=pack)
+    torch.cuda.synchronize()
+    want = kernels.candidate_scores_plain(spec, x_f, xh, idx, p, pack_ids=pack)
+    if pack:
+        assert torch.equal(kernels.unpack_ids(got), idx)
+        got, want = _unpacked(got), _unpacked(want)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-2, atol=1e-4)

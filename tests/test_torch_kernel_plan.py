@@ -1,6 +1,8 @@
-"""The launch plans of the selected-scores (B2) and select-rebuild (B3)
-kernels, worked out on the CPU from the shapes alone, and the zero padding
-of a low-rank concat factor for the tensor cores.
+"""The launch plans of the four beam-step kernels, worked out on the CPU from
+the shapes alone: selected scores (B2), fused-substep scores (B4, each
+table layout), candidate scores (B5, at K = 1024 and with a low-rank concat
+factor) and select-rebuild (B3); and the zero padding of a low-rank concat
+factor for the tensor cores.
 
 The plans are held at the qinco2-S, -M and -L widths (D = 128, K = 256,
 A = 16, B = 32), at a normal beam step (N = 1024 vectors x F_in = 32 beam
@@ -163,6 +165,169 @@ def test_pad_rank_round_trip(rank):
     cat = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.concat_w.shape[0])))
     want = (cat @ w.concat_w.double()) @ w.concat_w2.double()
     got = (cat @ padded.concat_w.double()) @ padded.concat_w2.double()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if rank % 16 == 0:
+        assert padded is w
+
+
+# The fused-substep table layouts (B4) and the candidate kinds (B5): the
+# concat layer's width Wc is De, or the low-rank factor's rank padded to 16.
+FUSED_LAYOUTS = {"fold_up": None, "folded": None, "low_rank": 8}
+CANDIDATE_KINDS = {"K1024": None, "rank8": 8, "rank64": 64}
+
+
+def _wc(spec, rank):
+    return spec.De if rank is None else -(-rank // 16) * 16
+
+
+def _fused_plan(spec, F_in, A, layout, bf16=True):
+    """The wrapper's stage count: W2 (and U_0 with fold_up) once per item,
+    then the per-tile products, [out_proj]."""
+    L, rank = spec.L, FUSED_LAYOUTS[layout]
+    stages = {"fold_up": 3 + 2 * (L - 1), "low_rank": 2 + 2 * L, "folded": 1 + 2 * L}[layout]
+    return kernels.fused_plan(N * F_in, A, spec.D, spec.K, spec.De, spec.dh, _wc(spec, rank),
+                              bf16=bf16, layout=layout, in_proj=_proj(spec),
+                              stages=stages + int(_proj(spec)), sms=SMS)
+
+
+def _candidate_plan(spec, F_in, A, kind, bf16=True):
+    """The wrapper's stage count: the condition half once per item, then
+    [in_proj], the codeword half, [concat_w2], the FFN blocks, [out_proj]."""
+    rank = CANDIDATE_KINDS[kind]
+    stages = 2 + 2 * int(_proj(spec)) + int(rank is not None) + 2 * spec.L
+    return kernels.candidate_plan(N * F_in, A, spec.D, spec.De, spec.dh, _wc(spec, rank),
+                                  bf16=bf16, in_proj=_proj(spec), low_rank=rank is not None,
+                                  stages=stages, sms=SMS)
+
+
+@pytest.mark.parametrize("layout", sorted(FUSED_LAYOUTS))
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_fused_plan_fills_the_card(preset, step, layout):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _fused_plan(spec, F_in, A, layout)
+    _check_common(plan, N * F_in)
+    assert plan.tm >= (128 if preset == "qinco2-S" else 64)
+    assert plan.per_item & (plan.per_item - 1) == 0 and plan.per_item <= 32
+
+
+@pytest.mark.parametrize("kind", sorted(CANDIDATE_KINDS))
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_candidate_plan_fills_the_card(preset, step, kind):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _candidate_plan(spec, F_in, A, kind)
+    _check_common(plan, N * F_in)
+    assert plan.tm >= (128 if preset == "qinco2-S" else 64)
+    assert plan.per_item & (plan.per_item - 1) == 0 and plan.per_item <= 32
+
+
+def test_scoring_plans_at_the_main_steps():
+    """qinco2-S: B4 on the speed path takes 128-pair tiles at 16 rows a work
+    item (32 rows and its per-row buffers would not fit beside them), B5 at
+    K = 1024 128-pair tiles at 32 rows; at the IVF first step both take 4
+    rows (128 pairs) a work item, 256 items."""
+    spec = _spec("qinco2-S")
+    plan = _fused_plan(spec, 32, 16, "fold_up")
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (128, 16, 2048, 132)
+    plan = _candidate_plan(spec, 32, 16, "K1024")
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (128, 32, 1024, 132)
+    assert (_fused_plan(spec, 1, 32, "fold_up").per_item,
+            _candidate_plan(spec, 1, 32, "K1024").per_item) == (4, 4)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_f32_scoring_plans_are_the_cuda_core_kernels(preset):
+    """compute_dtype=float32 keeps the CUDA-core kernels: B4 32 beam rows a
+    block, B5 256 (row, slot) pairs a block, the largest MLP tile of 64 /
+    32 / 16 rows that fits."""
+    spec = _spec(preset)
+    D, K, De, Dh, A = spec.D, spec.K, spec.De, spec.dh, spec.A
+    fus = _fused_plan(spec, 32, A, "fold_up", bf16=False)
+    want = next(tm for tm in (64, 32, 16) if 4 * (32 * D + 32 * De + 32 * Dh + 32 * A + max(
+        32 * D + K * 33, tm * (D + De + max(Dh, D, De)))) <= SMEM_LIMIT)
+    assert (fus.mma, fus.tm, fus.per_item, fus.blocks) == (False, want, 32, N * 32 // 32)
+    cand = _candidate_plan(spec, 32, A, "K1024", bf16=False)
+    want = next(tm for tm in (64, 32, 16)
+                if 4 * tm * (2 * D + De + max(De + D, Dh, D)) <= SMEM_LIMIT)
+    assert (cand.mma, cand.tm, cand.per_item, cand.blocks) == (False, want, 256,
+                                                               N * 32 * A // 256)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "candidate"])
+@pytest.mark.parametrize("widths", [dict(De=2048, Dh=2048), dict(De=1024, Dh=4096)],
+                         ids=["De=Dh=2048", "Dh=4096"])
+def test_scoring_plans_raise_where_no_tile_fits(widths, kernel):
+    De, Dh = widths["De"], widths["Dh"]
+    with pytest.raises(ValueError, match="no tile fits"):
+        if kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, De, Dh, De, bf16=True, layout="folded",
+                               in_proj=True, stages=6)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, De, Dh, De, bf16=True, in_proj=True,
+                                   low_rank=False, stages=8)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "candidate"])
+def test_scoring_plans_raise_on_widths_off_the_mma_tile(kernel):
+    """An unpadded rank of 8 (or a width of 136) is refused, not rounded."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        if kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 8, bf16=True, layout="low_rank",
+                               in_proj=False, stages=6)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, 136, 256, 136, bf16=True, in_proj=True,
+                                   low_rank=False, stages=8)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "candidate"])
+def test_scoring_plans_raise_on_too_many_products(kernel):
+    with pytest.raises(ValueError, match="products"):
+        if kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 128, bf16=True, layout="folded",
+                               in_proj=False, stages=65)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, 128, 256, 128, bf16=True, in_proj=False,
+                                   low_rank=False, stages=65)
+
+
+def test_fused_plan_raises_on_an_unknown_layout():
+    with pytest.raises(ValueError, match="layout"):
+        kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 128, bf16=True, layout="perbin",
+                           in_proj=False, stages=6)
+
+
+@pytest.mark.parametrize("rank", [8, 16, 20])
+def test_pad_fused_rank_round_trip(rank):
+    """The fused-substep tensor-core route pads the low-rank factor's rank
+    to a multiple of 16 with zeros at the end of the table (its W1 slice),
+    of w2 and of concat_w2's rows: the original operands come back out,
+    and the low-rank product from the padded ones is unchanged."""
+    spec = QincoSpec(D=32, K=64, M=2, L=1, de=48, dh=64, A=8, B=8, concat_rank=rank,
+                     fused_substep=True, compute_dtype="bfloat16")
+    g = torch.Generator().manual_seed(0)
+    p = init_params(spec, g, device="cpu").step(0)
+    p = p._replace(concat_w=torch.randn(p.concat_w.shape, generator=g),
+                   concat_w2=torch.randn(p.concat_w2.shape, generator=g))
+    w = kernels._fused_weights(spec, p)
+    padded = kernels._pad_fused_rank(w)
+    pad = -rank % 16
+    assert padded.table.shape == (w.table.shape[0], w.table.shape[1] + pad)
+    assert padded.w2.shape == (w.w2.shape[0], rank + pad)
+    assert padded.concat_w2.shape == (rank + pad, w.concat_w2.shape[1])
+    assert torch.equal(padded.table[:, :w.table.shape[1]], w.table)
+    assert torch.equal(padded.w2[:, :rank], w.w2)
+    assert torch.equal(padded.concat_w2[:rank], w.concat_w2)
+    assert not padded.table[:, w.table.shape[1]:].any() and not padded.w2[:, rank:].any()
+    assert not padded.concat_w2[rank:].any()
+    assert (padded.off_h, padded.off_w1, padded.off_up) == (w.off_h, w.off_w1, w.off_up)
+    lr = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.w2.shape[0])))
+    t_w1 = w.table[:5, w.off_w1:].double()
+    want = (t_w1 + lr @ w.w2.double()) @ w.concat_w2.double()
+    got = (padded.table[:5, w.off_w1:].double() + lr @ padded.w2.double()) @ (
+        padded.concat_w2.double())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     if rank % 16 == 0:
         assert padded is w
