@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed 0] [--n 8192]
 
 1. Prints the card's name and power limit, turns TF32 off.
-2. Builds the kernels from ``qinco_torch/csrc`` and prints the seconds.
+2. Builds the kernels from ``qinco_torch/csrc`` and, beside them, the
+   native IVF library from ``native/``, and prints the seconds.
 3. Kernel phase: each kernel against its plain PyTorch version on the
    card at the main paths' shapes (qinco2-S at N=1024 vectors: a normal
    step and the IVF first step) and at the qinco2-M widths (in/out
@@ -44,10 +45,34 @@
    7 select-rebuild launches per step and per validation batch), that the
    validation MSE fell, every logged loss is finite and the eval gives the
    checkpoint's validation MSE (rtol 1e-4); then, from the
-   checkpoint's weights on one batch, the ms of a step, one step's device
-   time by kind (torch.profiler), and one step under the parity profile
-   against one under ``exact`` (loss ratio <= 1.01, codes agree >= 0.9).
-6. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
+   checkpoint's weights on one batch, the ms of a step (and, in turns, of
+   the same step with plain autograd gathers, whose backward adds by
+   atomics), one step's device time by kind (torch.profiler), and one step
+   under the parity profile against one under ``exact`` (loss ratio <=
+   1.01, codes agree >= 0.9).
+   Then two short runs of ``task=train`` from one seed (the RQ bootstrap's
+   k-means, 4 steps, their validation passes) must end at the same
+   parameters and log the same losses, bit for bit.
+6. Search phase at qinco2-S width (parity), through the search tasks of
+   ``python -m qinco_torch``: first one assignment-and-accumulate pass of
+   the k-means at ivf_K = 2^20 over 2^18 random rows, timed, with its f32
+   TFLOP/s and what it projects for the reference's 50M rows x 100
+   iterations; then ``task=ivf_centroids`` (ivf_K = 2^16, 10 iterations)
+   on 2^19 decodes of a random IVF model; a random qinco2-S model on those
+   centroids, written as a checkpoint, and its data (decodes of random
+   codes plus noise ``NOISE``): 2^19 training rows (plus 10,000 validation
+   rows) and a DB of 2^20 rows, 10,000 queries = DB rows plus noise
+   ``QUERY_NOISE``, their ground truth by brute force on the card;
+   ``task=encode`` of the training set and of the DB (vec/s from data load
+   to part file; launch counts exact: selected scores and select-rebuild
+   once per MLP step and chunk; the part file's first chunk equal to
+   ``encode_chunked``'s), ``task=build_index`` (ntotal = 2^20, the AQ MSE
+   finite), ``task=train_pairwise_decoder`` and ``task=search`` over
+   nprobe in {16, 64} x nmid_short in {0, 4} at nshort = 100, each point's
+   recall and ms per query by stage; R@100 >= 0.95 at nprobe = 64.  The
+   device time by kernel of one pair fit of the pairwise decoder and of
+   one search task at one point (torch.profiler) close the phase.
+7. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -66,18 +91,30 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from qinco_torch.__main__ import main as qinco_main
-from qinco_torch.checkpoint import load_checkpoint
+from qinco_torch.checkpoint import SAVED_PARAMETERS, load_checkpoint, save_checkpoint
 from qinco_torch.config import load_config
-from qinco_torch.models.params import QincoParams, StepParams, init_model_state, init_params
+from qinco_torch.models.params import (
+    QincoParams,
+    StepParams,
+    init_model_state,
+    init_params,
+    param_leaves,
+)
+from qinco_torch.models import qinco as qinco_model
 from qinco_torch.models.qinco import decode, decode_raw, encode, encode_chunked
 from qinco_torch.models.spec import spec_from_cfg
 from qinco_torch.ops import kernels
+from qinco_torch.ops.kmeans import DIST_BUDGET_ELEMS, accumulate_pass
+from qinco_torch.search.index import build_native
+from qinco_torch.search.pairwise_decoder import EVAL_ROWS
+from qinco_torch.search.pairwise_decoder import _pair_error as pair_error
 from qinco_torch.train import train_step as tts
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
@@ -98,6 +135,19 @@ CONCAT_RANK = 64
 NOISE, SPEED_NOISE = 0.05, 0.5
 # Train phase: training and validation rows, rows an epoch (ds.loop) and batch.
 TRAIN_ROWS, TRAIN_VAL, TRAIN_LOOP, TRAIN_BATCH = 65536, 8192, 16384, 1024
+# The repeated short run: rows an epoch, 2 epochs = 4 steps.
+REPEAT_LOOP = 2048
+# Search phase (scripts/scale_regression.py's anchor, D=128, ivf_K = 2^16,
+# its 10M-row DB cut to fit the smoke): training rows (plus the config's
+# validation rows), DB rows, queries, k-means iterations.
+SEARCH_IVF_K, SEARCH_TRAIN, SEARCH_VAL = 1 << 16, 1 << 19, 10_000
+SEARCH_DB, SEARCH_QUERIES, SEARCH_KMEANS_ITERS = 1 << 20, 10_000, 10
+QUERY_NOISE = 0.01
+# One assignment-and-accumulate pass of the production IVF k-means
+# (ivf_K = 2^20) over KMEANS_PASS_ROWS rows, projected to the reference's
+# KMEANS_REF_ROWS training rows and KMEANS_REF_ITERS iterations.
+KMEANS_PASS_K, KMEANS_PASS_ROWS = 1 << 20, 1 << 18
+KMEANS_REF_ROWS, KMEANS_REF_ITERS = 50_000_000, 100
 
 # kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
@@ -578,6 +628,19 @@ def _clone(params: QincoParams) -> QincoParams:
                        params.data_mean.detach().clone(), params.data_std.detach().clone())
 
 
+@contextlib.contextmanager
+def plain_gathers(on: bool):
+    """With ``on``, the losses' codebook gathers are plain ``table[ids]``
+    (as before the deterministic backward), for a timing beside them."""
+    saved = qinco_model.gather_rows
+    if on:
+        qinco_model.gather_rows = lambda table, ids: table[ids.long()]
+    try:
+        yield
+    finally:
+        qinco_model.gather_rows = saved
+
+
 def train_phase(seed: int, device, workdir: Path) -> dict:
     """The train phase (item 5 of the docstring); returns its JSON record
     with the main run's kernel launches."""
@@ -654,17 +717,240 @@ def train_phase(seed: int, device, workdir: Path) -> dict:
     agree = (out_p.codes == out_x.codes).float().mean().item()
     check(loss_ratio <= 1.01, f"train step: parity loss / exact loss {loss_ratio} > 1.01")
     check(agree >= 0.9, f"train step: parity codes agree with exact on {agree} < 0.9")
-    step_ms = time_ms(step_p, reps=10)
+    # the step, and the same step with plain autograd gathers (whose
+    # backward sums by atomic adds), in turns: new, plain, plain, new
+    turns = []
+    for plain in (False, True, True, False):
+        with plain_gathers(plain):
+            turns.append(time_ms(step_p, reps=10))
+    step_ms = (turns[0] + turns[3]) / 2
     breakdown = step_breakdown(step_p)
+    with plain_gathers(True):
+        plain_breakdown = step_breakdown(step_p)
+    repeat = repeated_train_runs(seed, workdir, data_path)
 
     res = dict(rows=TRAIN_ROWS, val_rows=TRAIN_VAL, rows_per_epoch=TRAIN_LOOP,
                batch=TRAIN_BATCH, steps=steps, rq_init_s=rq_s, rq_train_mse=rq_mse,
                train_phase_s=train_s, train_vec_s=steps * TRAIN_BATCH / train_s,
                run_s=run_s, val_mse=val, eval_mse=eval_mse, step_ms=step_ms,
+               step_ms_turns=turns, step_ms_plain_gathers=(turns[1] + turns[2]) / 2,
                launches_per_step=per_step, step_breakdown=breakdown,
+               step_breakdown_plain_gathers=plain_breakdown,
                parity_vs_exact_loss_ratio=loss_ratio, parity_vs_exact_code_agreement=agree,
-               launches=launches)
+               repeat=repeat, launches=launches)
     emit({"train": res})
+    return res
+
+
+def repeated_train_runs(seed: int, workdir: Path, data_path: Path) -> dict:
+    """Two short training runs from one seed through ``python -m
+    qinco_torch`` (the RQ bootstrap's k-means on the card, then 2 epochs
+    of ``REPEAT_LOOP`` rows = 4 steps and their validation passes): the
+    checkpoints' parameters and model state, and every logged loss and
+    validation MSE, must be equal bit for bit."""
+    spec = spec_of("qinco2-S")
+    runs = []
+    for r in range(2):
+        out = workdir / f"repeat_{r}.npz"
+        log = run_main(["task=train", "model_args=qinco2-S", f"trainset={data_path}",
+                        f"output={out}", f"ds.valset={TRAIN_VAL}", f"ds.loop={REPEAT_LOOP}",
+                        "epochs=1", "scheduler.stop_patience=0", f"seed={seed}",
+                        "encode_profile=parity", f"batch={TRAIN_BATCH}", "verbose=false"])
+        steps = int(_found(r"Training done: (\d+) steps", log)[0])
+        check(steps == 2 * REPEAT_LOOP // TRAIN_BATCH, f"repeat run {r}: {steps} steps")
+        ck = load_checkpoint(out, spec, device="cuda")
+        tensors = param_leaves(ck["params"]) + list(ck["mstate"] or [])
+        logged = re.findall(r"RQ init train MSE=\S+|train loss \S+|All losses: \[\[.*\]\]|"
+                            r"Validation metrics: \[\[MSE=[^\]]+\]\]", log)
+        runs.append((tensors, logged))
+    (ta, la), (tb, lb) = runs
+    same_tensors = len(ta) == len(tb) and all(torch.equal(a, b) for a, b in zip(ta, tb))
+    same_log = la == lb
+    check(same_tensors, "two training runs from one seed end at different parameters")
+    check(same_log, f"two training runs from one seed logged different losses: {la} vs {lb}")
+    return dict(steps=2 * REPEAT_LOOP // TRAIN_BATCH, tensors=len(ta), logged=la,
+                bit_identical=same_tensors and same_log)
+
+
+def kmeans_pass(seed: int, device) -> dict:
+    """One assignment-and-accumulate pass of the IVF k-means at the
+    production book size (``KMEANS_PASS_K`` random centroids) over
+    ``KMEANS_PASS_ROWS`` random rows, the port's ``accumulate_pass``: its
+    seconds (host clock, synchronized), f32 TFLOP/s, bound, and the time it
+    projects for the reference's k-means (``KMEANS_REF_ROWS`` rows,
+    ``KMEANS_REF_ITERS`` iterations)."""
+    K, n, D, chunk = KMEANS_PASS_K, KMEANS_PASS_ROWS, 128, 65536
+    g = torch.Generator(device=device).manual_seed(seed + 11)
+    x = torch.randn((n, D), generator=g, device=device)
+    cent = torch.randn((K, D), generator=g, device=device)
+    rows = DIST_BUDGET_ELEMS // chunk
+
+    def one_pass(xr):
+        sums = torch.zeros((K, D), device=device)
+        counts = torch.zeros((K,), dtype=torch.int64, device=device)
+        accumulate_pass(xr, cent, sums, counts, chunk=chunk, rows=rows)
+        return counts
+
+    one_pass(x[:rows])  # warm-up: one step of the pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = one_pass(x)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(int(counts.sum()) == n, "k-means pass: counts do not add up to the rows")
+    flops = 2.0 * n * K * D
+    b_ms, b_by = bound_ms(flops, 4.0 * (n * D + K * D + K * D + K), "float32")
+    iter_s = sec * KMEANS_REF_ROWS / n
+    return dict(ivf_K=K, rows=n, s=sec, gflop=flops / 1e9, tflops=flops / sec / 1e12,
+                bound_s=b_ms / 1e3, bound_by=b_by, projected_iter_s=iter_s,
+                projected_rows=KMEANS_REF_ROWS, projected_iters=KMEANS_REF_ITERS,
+                projected_card_hours=iter_s * KMEANS_REF_ITERS / 3600)
+
+
+def brute_force_nn(queries: np.ndarray, db: np.ndarray, device, block: int = 1000):
+    """Each query's nearest DB row by brute force on the card in f32,
+    ``(nq, 1)`` int32."""
+    xb = torch.from_numpy(db).to(device)
+    nb = (xb * xb).sum(-1)
+    out = []
+    for i in range(0, len(queries), block):
+        q = torch.from_numpy(queries[i:i + block]).to(device)
+        out.append(torch.argmin(nb - 2.0 * (q @ xb.T), dim=1).int().cpu())
+    return torch.cat(out).numpy()[:, None]
+
+
+def search_phase(seed: int, device, workdir: Path) -> dict:
+    """The search phase (item 6 of the docstring); returns its JSON record
+    with the encode runs' kernel launches."""
+    t_phase = time.perf_counter()
+    res = dict(kmeans_pass=kmeans_pass(seed, device))
+    emit({"kmeans_pass": res["kmeans_pass"]})
+    spec = spec_of("qinco2-S", f"ivf_K={SEARCH_IVF_K}", "ivf_in_use=true")
+    f = {k: workdir / k for k in (
+        "kmeans_train.npy", "ivf.npy", "model.npz", "train.npy", "db.npy", "queries.npy",
+        "gt.npy", "codes_train.npz", "codes_db.npz", "index.qivf", "pairwise.npz",
+        "results.json")}
+    n_train = SEARCH_TRAIN + SEARCH_VAL
+
+    # 1. IVF centroids, from decodes of a random model with a random IVF book
+    np.save(f["kmeans_train.npy"], synthetic_data(
+        spec, random_model(spec, seed + 20, device), n_train, seed + 21, NOISE))
+    t0 = time.perf_counter()
+    run_main(["task=ivf_centroids", f"trainset={f['kmeans_train.npy']}",
+              f"output={f['ivf.npy']}", f"ivf_K={SEARCH_IVF_K}", f"ds.valset={SEARCH_VAL}",
+              f"kmeans_iters={SEARCH_KMEANS_ITERS}", f"seed={seed}", "verbose=false"])
+    res["ivf_centroids_s"] = time.perf_counter() - t0
+    cent = np.load(f["ivf.npy"])
+    check(cent.shape == (SEARCH_IVF_K, spec.D) and np.isfinite(cent).all(),
+          f"ivf_centroids: centroids {cent.shape}")
+
+    # 2. a random qinco2-S model on the trained centroids, its data
+    params = random_model(spec, seed, device)
+    params = params._replace(codebook0=(torch.from_numpy(cent).to(device) - params.data_mean)
+                             / params.data_std)
+    cfg = load_config(["model_args=qinco2-S", f"ivf_K={SEARCH_IVF_K}", "ivf_in_use=true"])
+    save_checkpoint(f["model.npz"], params=params, model_state=init_model_state(spec, device=device),
+                    hyperparams={k: cfg.get(k) for k in SAVED_PARAMETERS if cfg.get(k) is not None},
+                    data_dim=spec.D)
+    np.save(f["train.npy"], synthetic_data(spec, params, n_train, seed + 22, NOISE))
+    db = synthetic_data(spec, params, SEARCH_DB, seed + 23, NOISE)
+    np.save(f["db.npy"], db)
+    rng = np.random.default_rng(seed + 24)
+    queries = (db[:SEARCH_QUERIES] + QUERY_NOISE * rng.standard_normal(
+        (SEARCH_QUERIES, spec.D))).astype(np.float32)
+    gt = brute_force_nn(queries, db, device)
+    np.save(f["queries.npy"], queries)
+    np.save(f["gt.npy"], gt)
+    res["gt_is_source_row"] = float((gt[:, 0] == np.arange(SEARCH_QUERIES)).mean())
+
+    # 3. encode the training set and the DB through the kernels (parity)
+    common = [f"model={f['model.npz']}", f"ivf_centroids={f['ivf.npy']}",
+              "encode_profile=parity", "batch=1024", "verbose=false"]
+    res["encode"] = {}
+    for label, n, args in (
+            ("trainset", n_train, [f"trainset={f['train.npy']}", "encode_trainset=true",
+                                   f"ds.valset={SEARCH_VAL}", f"output={f['codes_train.npz']}"]),
+            ("db", SEARCH_DB, [f"db={f['db.npy']}", f"output={f['codes_db.npz']}"])):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        run_main(["task=encode", *args, *common])
+        sec = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        per = -(-n // 1024) * spec.n_mlp_steps
+        want = {k: per if k in ("selected_scores", "select_rebuild") else 0 for k in launches}
+        check(launches == want, f"encode {label}: launches {launches}, expected {want}")
+        res["encode"][label] = dict(n=n, s=sec, vec_s=n / sec, launches=launches)
+    part = np.load(f["codes_db.npz"].with_name("codes_db.part_0.npz"))["codes"]
+    check(part.shape == (SEARCH_DB, spec.M_ivf), f"encode db: part file codes {part.shape}")
+    trained = load_checkpoint(f["model.npz"], spec, device=device)["params"]
+    first = encode_chunked(trained, spec, db[:1024], batch=1024)
+    check(np.array_equal(part[:1024].T, first),
+          "encode db: the part file's first chunk differs from encode_chunked's")
+
+    # 4. the index
+    t0 = time.perf_counter()
+    log = run_main(["task=build_index", f"trainset={f['train.npy']}",
+                    f"ivf_centroids={f['ivf.npy']}", f"encoded_trainset={f['codes_train.npz']}",
+                    f"encoded_db={f['codes_db.npz']}", f"output={f['index.qivf']}",
+                    f"ds.valset={SEARCH_VAL}", "verbose=false"])
+    res["build_index_s"] = time.perf_counter() - t0
+    res["aq_train_mse"] = float(_found(r"AQ train MSE: (\S+)", log)[0])
+    res["ntotal"] = int(_found(r"ntotal=(\d+)", log)[-1])
+    check(math.isfinite(res["aq_train_mse"]), f"build_index: AQ MSE {res['aq_train_mse']}")
+    check(res["ntotal"] == SEARCH_DB, f"build_index: ntotal {res['ntotal']}")
+
+    # 5. the pairwise decoder
+    t0 = time.perf_counter()
+    log = run_main(["task=train_pairwise_decoder", f"trainset={f['train.npy']}",
+                    f"ivf_centroids={f['ivf.npy']}", f"encoded_trainset={f['codes_train.npz']}",
+                    f"output={f['pairwise.npz']}", f"ds.valset={SEARCH_VAL}", f"seed={seed}",
+                    "verbose=false"])
+    res["train_pairwise_decoder_s"] = time.perf_counter() - t0
+    res["pairwise_mse"] = [float(v) for v in _found(
+        r"pairwise decoder train_MSE=(\S+) val_MSE=(\S+)", log)[0]]
+    check(all(math.isfinite(v) for v in res["pairwise_mse"]),
+          f"pairwise decoder: MSE {res['pairwise_mse']}")
+    # where one of its 16 x 78 pair fits spends its time, at its shapes
+    codes_t = np.load(f["codes_train.npz"].with_name("codes_train.part_0.npz"))["codes"]
+    codes_t = torch.from_numpy(codes_t[:SEARCH_TRAIN]).to(device).long()
+    resid = torch.from_numpy(np.load(f["train.npy"])[:SEARCH_TRAIN]).to(device) - torch.from_numpy(
+        cent).to(device)[codes_t[:, 0]]
+    K2 = spec.K * spec.K
+    comb = codes_t[:, 1] * spec.K + codes_t[:, 2]
+    pair_error(comb, resid, K2, min(EVAL_ROWS, SEARCH_TRAIN), 8.0)
+    res["pair_fit_breakdown"] = device_breakdown(
+        lambda: float(pair_error(comb, resid, K2, min(EVAL_ROWS, SEARCH_TRAIN), 8.0)))
+    del codes_t, resid, comb
+
+    # 6. the search over the grid
+    t0 = time.perf_counter()
+    run_main(["task=search", f"model={f['model.npz']}", f"ivf_centroids={f['ivf.npy']}",
+              f"index={f['index.qivf']}", f"pairwise_decoder={f['pairwise.npz']}",
+              f"queries={f['queries.npy']}", f"queries_gt={f['gt.npy']}",
+              f"output={f['results.json']}", "search.nprobe=[16,64]", "search.nshort=[100]",
+              "search.nmid_short=[0,4]", "search.quantizer_efSearch=[]",
+              "search.explore_all=true", "search.nthreads=0", "encode_profile=parity",
+              "batch=1024", "verbose=false"])
+    res["search_s"] = time.perf_counter() - t0
+    points = json.loads(f["results.json"].read_text())["ivf_real_res"]
+    check(len(points) == 4, f"search: {len(points)} operating points, expected 4")
+    res["points"] = [dict(**r["parameters"], **{f"R@{k}": v for k, v in r["recalls"].items()},
+                          **{f"ms_per_query_{t}": r[f"t_{t}"] * 1e3 / SEARCH_QUERIES
+                             for t in ("search", "mid_rerank", "decode", "rerank", "total")})
+                     for r in points]
+    r100 = [p["R@100"] for p in res["points"] if p["nprobe"] == 64]
+    check(min(r100) >= 0.95, f"search: R@100 at nprobe=64 is {r100} < 0.95")
+    # the device's share of one search task at one point (nprobe 64, nmid 4):
+    # index and model load, the warm-up pass and the measured pass
+    res["search_point_breakdown"] = device_breakdown(lambda: run_main([
+        "task=search", f"model={f['model.npz']}", f"ivf_centroids={f['ivf.npy']}",
+        f"index={f['index.qivf']}", f"pairwise_decoder={f['pairwise.npz']}",
+        f"queries={f['queries.npy']}", f"queries_gt={f['gt.npy']}", "search.nprobe=[64]",
+        "search.nshort=[100]", "search.nmid_short=[4]", "search.quantizer_efSearch=[]",
+        "search.nthreads=0", "encode_profile=parity", "batch=1024", "verbose=false"]))
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"search": res})
     return res
 
 
@@ -685,8 +971,12 @@ def main() -> None:
     device = torch.device("cuda")
 
     t = time.perf_counter()
-    reports = kernels.build()
-    emit({"build_s": time.perf_counter() - t, "ptxas": {
+    # the native IVF library (g++) builds beside the kernels (nvcc)
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)
+        reports = kernels.build()
+        native_lib = native.result()
+    emit({"build_s": time.perf_counter() - t, "native_lib": str(native_lib), "ptxas": {
         name: re.findall(r"Used \d+ registers|\d+ bytes spill stores", log)
         for name, log in reports.items()}})
 
@@ -752,6 +1042,11 @@ def main() -> None:
         train = train_phase(seed, device, Path(tmp))
     for k, v in train["launches"].items():
         launches[k] += v
+    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+        search = search_phase(seed, device, Path(tmp))
+    for run in search["encode"].values():
+        for k, v in run["launches"].items():
+            launches[k] += v
 
     emit({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=replaces, launches=launches[k],

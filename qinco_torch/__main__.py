@@ -6,8 +6,10 @@
 Any config key takes a dotted ``key=value`` override; ``model_args=``
 selects a preset of ``qinco_torch/configs/model_args/`` and
 ``encode_profile=`` one of the encode bundles.  Tasks: ``train``,
-``eval_valset``, ``eval`` and ``eval_time``; they run on the CUDA device,
-or on the CPU with ``cpu=true``.
+``eval_valset``, ``eval``, ``eval_time`` and the search pipeline's
+``ivf_centroids``, ``encode``, ``build_index``, ``train_pairwise_decoder``
+and ``search``; they run on the CUDA device, or on the CPU with
+``cpu=true``.
 """
 
 import sys

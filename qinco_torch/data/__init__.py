@@ -1,5 +1,11 @@
 from .vecs_io import bvecs_mmap, fvecs_mmap, ivecs_mmap, open_vectors
-from .datasets import Batch, BlockShuffledLoader, load_vec_db, load_vec_trainset
+from .datasets import (
+    Batch,
+    BlockShuffledLoader,
+    load_queries_data,
+    load_vec_db,
+    load_vec_trainset,
+)
 
 __all__ = [
     "bvecs_mmap",
@@ -10,4 +16,5 @@ __all__ = [
     "BlockShuffledLoader",
     "load_vec_trainset",
     "load_vec_db",
+    "load_queries_data",
 ]

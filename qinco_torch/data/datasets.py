@@ -131,3 +131,12 @@ def load_vec_db(cfg):
     cfg.ds.db = min(cfg.ds.db or len(xdb), len(xdb))
     xdb = xdb[: cfg.ds.db]
     return xdb, BlockShuffledLoader(xdb, cfg.batch, shuffle=False)
+
+
+def load_queries_data(cfg):
+    """The query vectors and their ground-truth neighbour ids."""
+    if cfg.queries is None:
+        raise ValueError("Provide queries via 'queries'")
+    if cfg.queries_gt is None:
+        raise ValueError("Provide ground truth via 'queries_gt'")
+    return open_vectors(cfg.queries, "queries"), open_vectors(cfg.queries_gt, "queries_gt")

@@ -1,4 +1,4 @@
-"""Metrics: the scaled MSE accumulator and codebook entropy
+"""Metrics: the scaled MSE accumulator, codebook entropy and search recall
 (counterpart of ``qinco_tpu/metrics.py``).  The accumulators take sums
 already reduced on the device, so a batch costs one host read."""
 
@@ -55,3 +55,12 @@ def codebook_entropy(usage_rows) -> list[float]:
         p = p[p > 0]
         out.append(float(-(p * np.log2(p)).sum()))
     return out
+
+
+def compute_recalls(I: np.ndarray, gt: np.ndarray) -> dict[int, float]:
+    """recall@{1,10,100}: the share of queries whose true nearest neighbour
+    ``gt[:, 0]`` is among the first r results of ``I (nq, >= r)``."""
+    I, gt = np.asarray(I), np.asarray(gt)
+    if I.ndim != 2 or gt.ndim != 2:
+        raise ValueError(f"results {I.shape} and ground truth {gt.shape} must be 2-D")
+    return {rank: float((I[:, :rank] == gt[:, :1]).sum() / gt.shape[0]) for rank in (1, 10, 100)}

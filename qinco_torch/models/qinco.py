@@ -42,6 +42,7 @@ from ..ops.distances import (
     sqdist_topk,
     topk_smallest,
 )
+from ..ops.segment import gather_rows
 from .params import QincoParams, StepParams
 from .spec import QincoSpec
 
@@ -95,7 +96,7 @@ def step_decode(
 ) -> torch.Tensor:
     """Decode one step: predicted codeword for ``codes (N,)`` given
     ``xhat (N, D)``."""
-    cw = p.codebook[codes.long()]
+    cw = gather_rows(p.codebook, codes)
     return step_predict(spec, p, cw[:, None, :], xhat)[:, 0]
 
 
@@ -387,7 +388,7 @@ def encode_chunked(
         out[:, i:i + n_valid] = host.numpy()[:, :n_valid]
 
     for i in range(0, n, bs):
-        chunk = np.asarray(x[i:i + bs], dtype=np.float32)
+        chunk = np.array(x[i:i + bs], dtype=np.float32)  # a writable copy of a memmap slice
         n_valid = len(chunk)
         if n_valid < bs:
             chunk = np.concatenate([chunk, np.zeros((bs - n_valid, chunk.shape[1]), np.float32)])
@@ -427,7 +428,9 @@ def train_losses(
     ``weights (N,)`` masks padded rows.  Returns ``(total, losses)``:
     ``mse_loss`` (step 0's folded in), ``loss_substep`` when A > 0, and
     ``xhat`` (N, D).  The IVF book gets no gradient, and the substep loss
-    reaches only the substep codebook."""
+    reaches only the substep codebook.  The codebook gathers' gradients
+    are deterministic segment sums (:func:`~qinco_torch.ops.segment.gather_rows`),
+    so a step on the card gives the same bits on every run."""
     N = x.shape[0]
     if weights is None:
         weights = torch.ones((N,), dtype=torch.float32, device=x.device)
@@ -438,7 +441,7 @@ def train_losses(
 
     codes = codes.long()
     codebook0 = params.codebook0.detach() if spec.ivf_in_use else params.codebook0
-    xhat = codebook0[codes[0]]
+    xhat = gather_rows(codebook0, codes[0])
     losses = {}
     if not spec.ivf_in_use:
         losses["mse_loss_step0"] = wmean((xhat - x) ** 2)
@@ -449,7 +452,7 @@ def train_losses(
         xhat = xhat + step_decode(spec, p, c, xhat)
         mses.append(wmean((xhat - x) ** 2))
         if spec.has_substep():
-            subs.append(wmean((xhat_prev.detach() + p.sub_codebook[c] - x) ** 2))
+            subs.append(wmean((xhat_prev.detach() + gather_rows(p.sub_codebook, c) - x) ** 2))
     losses["mse_loss"] = torch.stack(mses).sum() + losses.pop("mse_loss_step0", 0.0)
     if spec.has_substep():
         losses["loss_substep"] = torch.stack(subs).sum()

@@ -2,8 +2,9 @@
 
 Assignment is :func:`qinco_torch.ops.distances.chunked_argmin` (a
 matmul argmin over codebook chunks); the update sums each cluster's rows
-with ``index_add_`` into ``(K, D)`` sums and ``(K,)`` counts on the
-device.  The rows stay on the device across iterations when they fit in
+into ``(K, D)`` sums with :func:`qinco_torch.ops.segment.segment_sum`
+(the same bits on every run, on the card too) and counts them with
+``bincount``, on the device.  The rows stay on the device across iterations when they fit in
 ``RESIDENT_BYTES``, else each iteration streams them up in ``batch``-row
 blocks.
 
@@ -21,12 +22,27 @@ import torch
 
 from ..utils import resolve_device
 from .distances import chunked_argmin
+from .segment import segment_sum
 
 # Rows per assignment step, under a budget of 2^27 elements (512 MB in
 # f32) for the (rows, chunk) distance tile.
 DIST_BUDGET_ELEMS = 2**27
 # The rows stay on the device when they take at most this many bytes.
 RESIDENT_BYTES = 8 * 2**30
+
+
+def accumulate_pass(xb: torch.Tensor, centroids: torch.Tensor, sums: torch.Tensor,
+                    counts: torch.Tensor, *, chunk: int, rows: int) -> None:
+    """One assignment-and-accumulate pass over the rows ``xb``: each
+    ``rows``-row step assigns its rows to the nearest of ``centroids``
+    (``chunked_argmin``, f32) and adds them into ``sums (K, D)`` and
+    ``counts (K,)`` in place."""
+    K = centroids.shape[0]
+    for r0 in range(0, len(xb), rows):
+        xr = xb[r0:r0 + rows]
+        codes, _ = chunked_argmin(xr, centroids, chunk=chunk)
+        sums += segment_sum(xr, codes, K)
+        counts += torch.bincount(codes, minlength=K)
 
 
 def kmeans(
@@ -65,14 +81,10 @@ def kmeans(
 
     for it in range(iters):
         sums = torch.zeros((K, D), dtype=torch.float32, device=device)
-        counts = torch.zeros((K,), dtype=torch.float32, device=device)
+        counts = torch.zeros((K,), dtype=torch.int64, device=device)
         for i, (lo, hi) in enumerate(bounds):
             xb = blocks[i] if resident else torch.as_tensor(x[lo:hi], device=device)
-            for r0 in range(0, len(xb), rows):
-                xr = xb[r0:r0 + rows]
-                codes, _ = chunked_argmin(xr, centroids, chunk=chunk)
-                sums.index_add_(0, codes, xr)
-                counts.index_add_(0, codes, torch.ones_like(codes, dtype=torch.float32))
+            accumulate_pass(xb, centroids, sums, counts, chunk=chunk, rows=rows)
         refill = torch.rand((K, D), generator=g, device=device) * std + mean
         empty = counts < 0.5
         sums = sums + refill * empty[:, None]

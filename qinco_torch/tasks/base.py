@@ -141,21 +141,24 @@ class BaseTask:
 
 # Tasks of the JAX package that later slices port, by ROADMAP item.
 NOT_PORTED = {
-    "ivf_centroids": "A7", "encode": "A7",
-    "build_index": "A8", "train_pairwise_decoder": "A8", "search": "A8",
     "convert": "A10", "train_pq": "A10", "eval_pq": "A10", "encode_codec": "A10",
     "decode_codec": "A10", "search_2stage": "A10",
 }
 
 
 def get_task(name: str):
-    from . import eval_task, train_task
+    from . import eval_task, search_tasks, train_task
 
     registry = {
         "train": train_task.TrainTask,
         "eval_valset": train_task.TrainTask,  # the train task's eval path
         "eval": eval_task.EvalTask,
         "eval_time": eval_task.EvalTask,
+        "ivf_centroids": search_tasks.IVFTrainTask,
+        "encode": search_tasks.EncodeDBTask,
+        "build_index": search_tasks.BuildIndexTask,
+        "train_pairwise_decoder": search_tasks.TrainPairwiseDecoderTask,
+        "search": search_tasks.SearchTask,
     }
     if name in NOT_PORTED:
         raise ValueError(f"Task {name!r} is not ported to qinco_torch yet "

@@ -120,6 +120,10 @@ class TimersManager:
         except KeyError:
             raise AttributeError(name) from None
 
+    def sum(self) -> Timer:
+        """A stopped timer holding the sum of the group's times."""
+        return Timer(elapsed=sum(t.get() for t in self._timers.values()))
+
     def state_dict(self) -> dict:
         return {name: t.get() for name, t in self._timers.items()}
 

@@ -4,7 +4,10 @@ tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
 with a low-rank factor, unpacked at K = 1024); and the bf16 tensor-core
 kernels with a ragged last work item.  Under bf16 every kernel is its
-tensor-core route.
+tensor-core route.  Then the determinism of the segment sum, k-means and
+train steps on the card (same bits on every run), and the search
+pipeline's device ops (the coarse probe, the pairwise decoder) against
+the CPU.
 
 Every case here needs a CUDA device and skips without one.  On a machine
 with a card (JAX is not needed):
@@ -359,3 +362,116 @@ def test_parity_train_step_on_the_card_matches_the_cpu(cuda):
         off = (a - b).abs() > 1e-2 * b.abs() + 1e-5
         assert off.float().mean() <= 0.02
         assert (a - b).abs().max() <= 2.02 * lr + 1e-2 * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# Run-to-run determinism on the card, and the search pipeline's device ops
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, K", [(4096, 256), (65536, 65536), (1000, 1 << 20)])
+def test_segment_sum_on_the_card_matches_the_cpu_and_repeats(cuda, n, K):
+    """The card's segment sum equals the CPU's within f32 rounding (rtol
+    1e-5, atol 1e-5) and gives the same bits on every run; ids skewed so
+    that some segments are long."""
+    from qinco_torch.ops.segment import segment_sum
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((n, 128), generator=g)
+    ids = (torch.rand((n,), generator=g) ** 3 * K).long()
+    want = segment_sum(x, ids, K)
+    runs = [segment_sum(x.to(cuda), ids.to(cuda), K) for _ in range(3)]
+    np.testing.assert_allclose(runs[0].cpu(), want, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+@pytest.mark.cuda
+def test_kmeans_on_the_card_repeats_bit_for_bit(cuda):
+    from qinco_torch.ops.kmeans import kmeans
+
+    x = np.random.default_rng(0).standard_normal((1 << 16, 128)).astype(np.float32)
+    a = kmeans(x, 4096, iters=3, seed=1, device=cuda)
+    b = kmeans(x, 4096, iters=3, seed=1, device=cuda)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_repeat_bit_for_bit(cuda):
+    """Three parity train steps from one seed, run twice: the losses and
+    every parameter leaf are equal bit for bit (the gathers' gradients
+    are segment sums, not atomic adds)."""
+    from qinco_torch.config import load_config
+    from qinco_torch.models.params import QincoParams, StepParams, init_model_state
+    from qinco_torch.models.params import param_leaves
+    from qinco_torch.train import train_step as tts
+
+    spec = QincoSpec(D=128, K=256, M=8, L=2, de=128, dh=256, A=16, B=32, pallas=True,
+                     fast=True, fused_select=True, compute_dtype="bfloat16")
+
+    def run():
+        g = torch.Generator(device=cuda).manual_seed(0)
+        p = init_params(spec, g, device=cuda)
+        steps = StepParams(*(a if a is None or a.any() else
+                             0.05 * torch.randn(a.shape, generator=g, device=cuda)
+                             for a in p.steps))
+        p = QincoParams(p.codebook0, steps, p.data_mean, p.data_std)
+        opt = tts.build_optimizer(load_config({"lr": 1e-3}), p, spec)
+        step = tts.make_train_step(spec, opt, 0.1)
+        mstate = init_model_state(spec, device=cuda)
+        losses = []
+        for _ in range(3):
+            x = torch.randn((1024, spec.D), generator=g, device=cuda)
+            p, mstate, out = step(p, mstate, x, torch.ones(1024, device=cuda))
+            losses.append(out.total_loss.detach().clone())
+        return [a.detach().clone() for a in param_leaves(p)], torch.stack(losses)
+
+    (pa, la), (pb, lb) = run(), run()
+    assert torch.equal(la, lb), (la, lb)
+    for a, b in zip(pa, pb):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_coarse_probe_on_the_card_matches_the_cpu(cuda):
+    """The exact top-nprobe over a 2^16-centroid book: the card's lists
+    equal the CPU's on >= 99.9% of entries (f32 products summed in
+    another order may swap a near tie) and the biases agree where the
+    lists do (rtol 1e-5)."""
+    from qinco_torch.search.index import coarse_probe
+
+    g = torch.Generator().manual_seed(0)
+    cent = torch.randn((1 << 16, 128), generator=g)
+    xq = cent[:512] + 0.3 * torch.randn((512, 128), generator=g)
+    idx_c, d_c = coarse_probe(xq, cent, 64)
+    idx_g, d_g = coarse_probe(xq.to(cuda), cent.to(cuda), 64)
+    same = idx_g.cpu() == idx_c
+    assert same.float().mean() >= 0.999
+    np.testing.assert_allclose(d_g.cpu()[same], d_c[same], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pairwise_decoder_on_the_card_matches_the_native_library(cuda):
+    """The decoder's torch path on the card against the native kernels of
+    the CPU decoder: decodes within rtol 1e-5, atol 1e-5, scores within
+    rtol 1e-4, atol 1e-4."""
+    from qinco_torch.search.pairwise_decoder import PairwiseDecoder
+
+    rng = np.random.default_rng(0)
+    K_base, M_base, ivf_m, T, D, nlist = 16, 8, 5, 16, 128, 4096
+    kw = dict(books=rng.normal(size=(T, K_base ** 2, D)).astype(np.float32),
+              pairs=rng.integers(0, M_base + ivf_m, size=(2, T)),
+              ivf_small_books=np.zeros((ivf_m, K_base, D), np.float32),
+              ivf_code_map=rng.integers(0, K_base, size=(nlist, ivf_m)), K_base=K_base,
+              M_base=M_base)
+    gpu, cpu = PairwiseDecoder(**kw, device=cuda), PairwiseDecoder(**kw, device="cpu")
+    nq, nmid = 64, 50
+    codes = np.concatenate([rng.integers(0, nlist, size=(nq * nmid, 1)),
+                            rng.integers(0, K_base, size=(nq * nmid, M_base))],
+                           axis=1).astype(np.int32)
+    np.testing.assert_allclose(gpu.decode(codes[:, 1:].T, codes[:, 0]),
+                               cpu.decode(codes[:, 1:].T, codes[:, 0]), rtol=1e-5, atol=1e-5)
+    xq = rng.normal(size=(nq, D)).astype(np.float32)
+    cents = rng.normal(size=(nlist, D)).astype(np.float32)
+    np.testing.assert_allclose(gpu.scores(xq, codes, cents, nmid),
+                               cpu.scores(xq, codes, cents, nmid), rtol=1e-4, atol=1e-4)

@@ -38,8 +38,16 @@ def test_imports_with_jax_and_qinco_tpu_absent():
         "import qinco_torch.ops.kmeans, qinco_torch.ops.rq, qinco_torch.metrics\n"
         "import qinco_torch.logsys, qinco_torch.data, qinco_torch.__main__\n"
         "import qinco_torch.tasks.train_task, qinco_torch.tasks.eval_task\n"
+        "import qinco_torch.ops.segment, qinco_torch.ops.aq, qinco_torch.tasks.search_tasks\n"
+        "import qinco_torch.search, qinco_torch.search.index, qinco_torch.search.index_build\n"
+        "import qinco_torch.search.pairwise_decoder, qinco_torch.search.search\n"
+        "import qinco_torch.search.operating_points, qinco_torch.search.optim_order\n"
+        "from qinco_torch.data import load_queries_data\n"
+        "from qinco_torch.metrics import compute_recalls\n"
         "from qinco_torch.tasks import get_task\n"
         "assert get_task('train') and get_task('eval_time')\n"
+        "for t in ('ivf_centroids', 'encode', 'build_index', 'train_pairwise_decoder', 'search'):\n"
+        "    assert get_task(t)\n"
         "import chip_smoke\n"
         "from qinco_torch.models import QincoSpec, init_params, encode, decode\n"
         "spec = QincoSpec(D=8, K=16, M=2, L=1, de=8, dh=8, A=4, B=2)\n"

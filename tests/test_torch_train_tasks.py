@@ -121,7 +121,7 @@ def test_jax_trainer_resumes_from_a_port_checkpoint(tiny_data, tmp_path, capsys)
     assert f"Start epoch {meta['epoch']} " in printed and "Start epoch 0 " not in printed
 
 
-@pytest.mark.parametrize("name, item", [("encode", "A7"), ("search", "A8"),
+@pytest.mark.parametrize("name, item", [("encode_codec", "A10"), ("search_2stage", "A10"),
                                         ("convert", "A10"), ("train_pq", "A10")])
 def test_tasks_of_later_slices_name_their_roadmap_item(name, item):
     with pytest.raises(ValueError, match=item):
