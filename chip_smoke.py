@@ -72,7 +72,36 @@
    recall and ms per query by stage; R@100 >= 0.95 at nprobe = 64.  The
    device time by kernel of one pair fit of the pairwise decoder and of
    one search task at one point (torch.profiler) close the phase.
-7. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
+7. Legacy phase, through the QINCo1-era tasks of ``python -m qinco_torch``
+   (parity profile where a QINCo2 model encodes):
+   - ``task=convert`` of the train phase's checkpoint written out as a
+     reference ``.pt`` state dict: the converted parameters (and EMA
+     buffers) equal the original's bit for bit, and ``task=encode_codec``
+     of the 8,192 held-out rows gives the same codes with either
+     checkpoint; a QINCo1-era ``.pt`` at bigann widths (random weights,
+     the v1 module layout) converted with ``db=bigann1B`` takes the
+     asset's norms;
+   - ``encode_codec`` of ``CODEC_ROWS`` rows to ``.npy`` codes and to a
+     packed file (8 bytes a vector), ``decode_codec`` of both: equal, and
+     equal to ``decode_raw`` of the codes; vec/s of each task from data
+     load to written file, and the exact B2 and B3 launch counts;
+   - ``task=search_2stage``: the AQ fit on ``TWO_STAGE_TRAIN`` rows, a
+     2^20-row DB, 10,000 queries (DB rows plus noise ``QUERY_NOISE``)
+     with brute-force ground truth, at each of ``TWO_STAGE_NSHORT``:
+     R@1/10/100 and ms per query of the shortlist and the rerank;
+     R@100 >= 0.95; the device time by kernel of one 256-query shortlist
+     and of one rerank decode batch (torch.profiler);
+   - ``task=train_pq`` with OPQ (``PQ_ARGS``) on ``PQ_TRAIN`` +
+     ``PQ_VAL`` rows of D = 256 synthetic data (``epochs=1``,
+     ``scheduler.stop_patience=0``), then ``task=eval_pq`` on a
+     ``PQ_DB``-row DB with ``PQ_QUERIES`` queries: the seconds of OPQ,
+     of each part and of the eval, the validation and DB MSE, R@1/10/100,
+     encode vec/s, the peak device memory of ``train_pq`` (its closing
+     report encodes 10,000 rows in one call), no kernel launched (the
+     exact profile); the ``.pqnpz``'s encode on the card against the
+     CPU's, and the device time by kernel of one 1024-row encode.
+   One ``{"legacy": ...}`` line, with a ``reduced`` list of each cut.
+8. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -148,6 +177,17 @@ QUERY_NOISE = 0.01
 # KMEANS_REF_ROWS training rows and KMEANS_REF_ITERS iterations.
 KMEANS_PASS_K, KMEANS_PASS_ROWS = 1 << 20, 1 << 18
 KMEANS_REF_ROWS, KMEANS_REF_ITERS = 50_000_000, 100
+# Legacy phase: rows of the encode_codec / decode_codec runs; the flat
+# two-stage search (the reference's qinco_v1/search_2stage.py over a 1M
+# DB): AQ training rows (plus the config's validation rows), DB rows,
+# queries and shortlist sizes; PQ-QINCo at the documented 2x16x8 with OPQ
+# (docs/pq_qinco.md) on D = 256 synthetic data, the width of FB-ssnpp:
+# training and validation rows, DB rows and queries.
+CODEC_ROWS = 1 << 18
+TWO_STAGE_TRAIN, TWO_STAGE_VAL, TWO_STAGE_DB, TWO_STAGE_QUERIES = 1 << 18, 10_000, 1 << 20, 10_000
+TWO_STAGE_NSHORT = (100, 1000)
+PQ_D, PQ_TRAIN, PQ_VAL, PQ_DB, PQ_QUERIES = 256, 1 << 17, 10_000, 1 << 18, 1000
+PQ_ARGS = ["pq_parts=2", "opq=true", "M=16", "K=256", "L=2", "de=128", "dh=256", "A=0", "B=1"]
 
 # kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
@@ -954,6 +994,313 @@ def search_phase(seed: int, device, workdir: Path) -> dict:
     return res
 
 
+def reference_state(params: QincoParams, spec, mstate=None) -> dict:
+    """``params`` as a reference ``.pt`` state dict, the layout that
+    ``task=convert`` reads: torch Linear weights are (out, in), so the
+    port's (in, out) matrices are transposed; with ``mstate``, the EMA
+    buffers ``xtarget_mean`` / ``xtarget_var`` too."""
+    cpu = lambda a: a.detach().cpu().contiguous()
+    st = params.steps
+    step0 = "ivf_centroids" if spec.ivf_in_use else "codebook"
+    sd = {f"steps.0.{step0}.weight": cpu(params.codebook0)}
+    for i in range(spec.n_mlp_steps):
+        m = f"steps.{i + 1}."
+        sd[m + "codebook.weight"] = cpu(st.codebook[i])
+        if st.sub_codebook is not None:
+            sd[m + "substep.codebook.weight"] = cpu(st.sub_codebook[i])
+        sd[m + "concat.mlp.weight"] = cpu(st.concat_w[i].T)
+        sd[m + "concat.mlp.bias"] = cpu(st.concat_b[i])
+        for l in range(spec.L):
+            sd[m + f"residual_blocks.{l}.up_proj.weight"] = cpu(st.ffn_up[i, l].T)
+            sd[m + f"residual_blocks.{l}.down_proj.weight"] = cpu(st.ffn_down[i, l].T)
+        if st.in_proj is not None:
+            sd[m + "in_proj.weight"] = cpu(st.in_proj[i].T)
+            sd[m + "out_proj.weight"] = cpu(st.out_proj[i].T)
+        if mstate is not None:
+            sd[m + "xtarget_mean"] = cpu(mstate.xtarget_mean[i])
+            sd[m + "xtarget_var"] = cpu(mstate.xtarget_var[i])
+    sd["data_mean"], sd["data_std"] = cpu(params.data_mean), cpu(params.data_std)
+    return sd
+
+
+class LaunchTally:
+    """Kernel launches summed over the legacy phase's task runs."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in kernels.LAUNCHES}
+
+    def run(self, argv) -> tuple[str, float, dict]:
+        """``run_main(argv)`` with the counts set to 0 just before it:
+        (log, seconds, this run's launches)."""
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        log = run_main(argv)
+        sec = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            self.total[k] += v
+        return log, sec, launches
+
+
+def expect_encode_launches(label, launches, rows, spec) -> None:
+    """Exact counts of parity encodes of ``rows`` (a count for each
+    encode) at batch 1024: B2 and B3 once per MLP step and chunk, no other
+    kernel."""
+    per = sum(-(-n // 1024) for n in rows) * spec.n_mlp_steps
+    want = {k: per if k in ("selected_scores", "select_rebuild") else 0 for k in launches}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+
+def legacy_convert(spec, device, workdir: Path, train_dir: Path, tally: LaunchTally) -> dict:
+    """Item 7's convert checks."""
+    ck = load_checkpoint(train_dir / "model.npz", spec, device=device)
+    meta = ck["meta"]
+    pt = workdir / "qinco2_S.pt"
+    torch.save({"epoch": meta["epoch"], "model": reference_state(ck["params"], spec, ck["mstate"]),
+                "parameters": meta["parameters"], "data_dim": meta["data_dim"]}, pt)
+    conv = workdir / "converted.npz"
+    _, convert_s, _ = tally.run(["task=convert", f"model={pt}", f"output={conv}", "verbose=false"])
+    back = load_checkpoint(conv, spec, device=device)
+    leaves = param_leaves(ck["params"]) + [ck["mstate"].xtarget_mean, ck["mstate"].xtarget_var]
+    got = param_leaves(back["params"]) + [back["mstate"].xtarget_mean, back["mstate"].xtarget_var]
+    check(len(got) == len(leaves) and all(torch.equal(a, b) for a, b in zip(got, leaves)),
+          "convert: the converted checkpoint differs from the original")
+    check(back["meta"]["parameters"] == meta["parameters"], "convert: parameters differ")
+
+    codes = {}
+    for name, model in (("original", train_dir / "model.npz"), ("converted", conv)):
+        out = workdir / f"codes_{name}.npy"
+        _, _, launches = tally.run(["task=encode_codec", f"model={model}",
+                                    f"db={train_dir / 'val.npy'}", f"output={out}",
+                                    "encode_profile=parity", "batch=1024", "verbose=false"])
+        expect_encode_launches(f"encode_codec ({name})", launches, [TRAIN_VAL], spec)
+        codes[name] = np.load(out)
+    check(np.array_equal(codes["original"], codes["converted"]),
+          "convert: the converted checkpoint encodes to other codes")
+
+    # a QINCo1-era file at bigann widths (the qinco1 preset, D = 128):
+    # random weights in the v1 module layout, no norms, a stray step-0
+    # substep codebook
+    v1 = spec_of("qinco1", profile=None)
+    g = torch.Generator().manual_seed(7)
+    rnd = lambda *shape: 0.1 * torch.randn(shape, generator=g)
+    sd = {"steps.0.codebook.weight": rnd(v1.K, v1.D), "steps.0.substep.codebook.weight":
+          rnd(v1.K, v1.D)}
+    for m in range(1, v1.M):
+        sd[f"steps.{m}.codebook.weight"] = rnd(v1.K, v1.D)
+        sd[f"steps.{m}.concat.mlp.weight"] = rnd(v1.De, v1.De + v1.D)
+        sd[f"steps.{m}.concat.mlp.bias"] = rnd(v1.De)
+        for l in range(v1.L):
+            sd[f"steps.{m}.residual_blocks.{l}.up_proj.weight"] = rnd(v1.dh, v1.De)
+            sd[f"steps.{m}.residual_blocks.{l}.down_proj.weight"] = rnd(v1.De, v1.dh)
+    hp = dict(K=v1.K, M=v1.M, de=v1.de, dh=v1.dh, L=v1.L, A=0, B=1, ivf_in_use=False,
+              qinco1_mode=True)
+    torch.save({"epoch": 60, "model": sd, "parameters": hp}, workdir / "v1.pt")
+    tally.run(["task=convert", f"model={workdir / 'v1.pt'}", f"output={workdir / 'v1.npz'}",
+               "db=bigann1B", "verbose=false"])
+    v1_params = load_checkpoint(workdir / "v1.npz", v1, device=device)["params"]
+    with np.load(Path(__file__).parent / "qinco_torch/assets/v1_dataset_norms.npz") as z:
+        mean, std = z["bigann1M__mean"], float(z["bigann1M__std"])
+    check(np.array_equal(v1_params.data_mean.cpu().numpy(), mean)
+          and float(v1_params.data_std) == np.float32(std),
+          "convert v1: the data norms are not bigann1M's")
+    v1_codes = torch.randint(0, v1.K, (v1.M, 1024), generator=g).to(device)
+    check(bool(torch.isfinite(decode_raw(v1_params, v1, v1_codes)).all()),
+          "convert v1: decode is not finite")
+    return dict(convert_s=convert_s, leaves=len(leaves), leaves_equal=True,
+                encode_rows=TRAIN_VAL, codes_equal=True, v1_norms="bigann1M", v1_L=v1.L)
+
+
+def legacy_codec(spec, device, workdir: Path, model: Path, data: np.ndarray,
+                 tally: LaunchTally) -> dict:
+    """Item 7's encode_codec / decode_codec checks."""
+    n = len(data)
+    np.save(workdir / "codec_db.npy", data)
+    common = [f"model={model}", "encode_profile=parity", "batch=1024", "verbose=false"]
+    res, decoded, launches = {}, {}, {}
+    for ext in ("npy", "qcod"):
+        codes_file = workdir / f"codec_codes.{ext}"
+        _, sec, launches[ext] = tally.run(["task=encode_codec", f"db={workdir / 'codec_db.npy'}",
+                                           f"output={codes_file}", *common])
+        expect_encode_launches(f"encode_codec .{ext}", launches[ext], [n], spec)
+        res[f"encode_{ext}_vec_s"] = n / sec
+        _, sec, _ = tally.run(["task=decode_codec", f"encoded_db={codes_file}",
+                               f"output={workdir / f'codec_decoded_{ext}.npy'}", *common])
+        res[f"decode_{ext}_vec_s"] = n / sec
+        decoded[ext] = np.load(workdir / f"codec_decoded_{ext}.npy")
+    packed_bytes = (workdir / "codec_codes.qcod").stat().st_size - 20
+    check(packed_bytes == 8 * n, f"packed codes: {packed_bytes} bytes for {n} vectors")
+    check(np.array_equal(decoded["npy"], decoded["qcod"]),
+          "decode_codec: the .npy and the packed codes decode differently")
+    params = load_checkpoint(model, spec, device=device)["params"]
+    codes = torch.from_numpy(np.load(workdir / "codec_codes.npy").T.copy()).to(device)
+    want = torch.cat([decode_raw(params, spec, codes[:, i:i + 1024])
+                      for i in range(0, n, 1024)]).cpu().numpy()
+    check(np.array_equal(decoded["npy"], want), "decode_codec differs from decode_raw")
+    rel = float(((decoded["npy"] - data) ** 2).sum(-1).mean() / (data ** 2).sum(-1).mean())
+    return dict(rows=n, bytes_per_vector=packed_bytes / n, relative_mse=rel,
+                launches_per_encode=launches["npy"], **res)
+
+
+def legacy_two_stage(spec, device, workdir: Path, model: Path, source: QincoParams,
+                     seed: int, tally: LaunchTally) -> dict:
+    """Item 7's search_2stage run."""
+    f = {k: workdir / f"two_stage_{k}.npy" for k in ("train", "db", "queries", "gt")}
+    np.save(f["train"], synthetic_data(spec, source, TWO_STAGE_TRAIN + TWO_STAGE_VAL, seed + 31,
+                                       NOISE))
+    db = synthetic_data(spec, source, TWO_STAGE_DB, seed + 32, NOISE)
+    rng = np.random.default_rng(seed + 33)
+    queries = (db[:TWO_STAGE_QUERIES] + QUERY_NOISE * rng.standard_normal(
+        (TWO_STAGE_QUERIES, spec.D))).astype(np.float32)
+    np.save(f["db"], db)
+    np.save(f["queries"], queries)
+    np.save(f["gt"], brute_force_nn(queries, db, device))
+    del db
+    out = workdir / "two_stage.json"
+    log, sec, launches = tally.run([
+        "task=search_2stage", f"model={model}", f"trainset={f['train']}", f"db={f['db']}",
+        f"queries={f['queries']}", f"queries_gt={f['gt']}", f"output={out}",
+        f"ds.valset={TWO_STAGE_VAL}", f"search.nshort={list(TWO_STAGE_NSHORT)}",
+        "encode_profile=parity", "batch=1024", "verbose=false"])
+    # the AQ fit's encode of the training rows, then the DB's
+    expect_encode_launches("search_2stage", launches, [TWO_STAGE_TRAIN, TWO_STAGE_DB], spec)
+    results = json.loads(out.read_text())
+    timers = re.findall(r"T_shortlist=(\S+)s T_rerank=(\S+)s", log)
+    check(len(timers) == len(TWO_STAGE_NSHORT) and sorted(map(int, results)) == list(
+        TWO_STAGE_NSHORT), f"search_2stage: results for {sorted(results)}")
+    points = []
+    for nshort, (t_short, t_rerank) in zip(TWO_STAGE_NSHORT, timers):
+        r = results[str(nshort)]
+        points.append(dict(nshort=nshort, **{f"R@{k}": v for k, v in r.items()},
+                           ms_per_query_shortlist=float(t_short) * 1e3 / TWO_STAGE_QUERIES,
+                           ms_per_query_rerank=float(t_rerank) * 1e3 / TWO_STAGE_QUERIES))
+        check(r["100"] >= 0.95, f"search_2stage: R@100 {r['100']} < 0.95 at nshort={nshort}")
+    # where one query batch's time goes: the shortlist of 256 queries over
+    # the DB's codes (random codes and books of the same shapes), and one
+    # rerank decode of decode_batch (search.batch_size) candidates
+    from qinco_torch.search.two_stage import _aq_shortlist
+
+    g = torch.Generator(device=device).manual_seed(seed + 34)
+    codes = torch.randint(0, spec.K, (spec.M, TWO_STAGE_DB), generator=g, device=device)
+    books = torch.randn((spec.M, spec.K, spec.D), generator=g, device=device)
+    norms = torch.rand((TWO_STAGE_DB,), generator=g, device=device)
+    q = torch.from_numpy(queries[:256]).to(device)
+    params = load_checkpoint(model, spec, device=device)["params"]
+    decode_batch = load_config([]).search.batch_size
+    shortlist = {nshort: device_breakdown(lambda: _aq_shortlist(q, codes, books, norms, nshort))
+                 for nshort in TWO_STAGE_NSHORT}
+    rerank_decode = device_breakdown(lambda: decode_raw(params, spec, codes[:, :decode_batch]))
+    return dict(train_rows=TWO_STAGE_TRAIN, db=TWO_STAGE_DB, queries=TWO_STAGE_QUERIES, s=sec,
+                launches=launches, points=points, shortlist_batch_breakdown=shortlist,
+                rerank_decode_batch=decode_batch, rerank_decode_breakdown=rerank_decode)
+
+
+def pq_data(n: int, seed: int, rows_seed: int, device) -> np.ndarray:
+    """``n`` rows of D = 256 synthetic embeddings: Gaussian with a decaying
+    spectrum (std exp(-i/64) along the i-th of random orthogonal axes
+    drawn from ``seed``), so the dimensions correlate and a rotation
+    matters to the product split; the rows are drawn from ``rows_seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    axes, _ = torch.linalg.qr(torch.randn((PQ_D, PQ_D), generator=g, device=device))
+    scale = torch.exp(-torch.arange(PQ_D, device=device) / 64.0)
+    g.manual_seed(rows_seed)
+    z = torch.randn((n, PQ_D), generator=g, device=device)
+    return ((z * scale) @ axes.T).cpu().numpy()
+
+
+def legacy_pq(device, workdir: Path, seed: int, tally: LaunchTally) -> dict:
+    """Item 7's train_pq / eval_pq runs."""
+    f = {k: workdir / f"pq_{k}.npy" for k in ("train", "db", "queries", "gt")}
+    np.save(f["train"], pq_data(PQ_TRAIN + PQ_VAL, seed + 40, seed + 41, device))
+    db = pq_data(PQ_DB, seed + 40, seed + 42, device)
+    rng = np.random.default_rng(seed + 43)
+    queries = (db[:PQ_QUERIES] + QUERY_NOISE * rng.standard_normal((PQ_QUERIES, PQ_D))).astype(
+        np.float32)
+    np.save(f["db"], db)
+    np.save(f["queries"], queries)
+    np.save(f["gt"], brute_force_nn(queries, db, device))
+    model = workdir / "pq.pqnpz"
+    torch.cuda.reset_peak_memory_stats()
+    log, train_s, launches = tally.run([
+        "task=train_pq", f"trainset={f['train']}", f"output={model}", *PQ_ARGS,
+        f"ds.valset={PQ_VAL}", "epochs=1", "scheduler.stop_patience=0", f"seed={seed}",
+        "batch=1024", "verbose=false"])
+    opq_s = float(_found(r"OPQ rotation trained \((\S+)s\)", log)[0])
+    part_s = [float(v) for v in _found(r"PQ part \d+/\d+ trained \((\S+)s\)", log)]
+    epochs = len(_found(r"Start epoch \d+ ", log)) // 2
+    val_mse = float(_found(r"PQ-QINCo validation MSE: (\S+)", log)[0])
+    # the closing report encodes 10,000 rows in one call
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log, eval_s, eval_launches = tally.run([
+        "task=eval_pq", f"db={f['db']}", f"model={model}", f"queries={f['queries']}",
+        f"queries_gt={f['gt']}", "batch=1024", "verbose=false"])
+    db_mse = float(_found(r"PQ-QINCo DB MSE: (\S+)", log)[0])
+    enc_s = float(_found(r"Encoded \d+ vectors \((\S+)s\)", log)[0])
+    recalls = [float(v) / 100 for v in _found(r"R@1=(\S+) R@10=(\S+) R@100=(\S+)", log)[0]]
+    check(not any(launches.values()) and not any(eval_launches.values()),
+          "PQ: the exact profile launched a kernel")
+    energy = float((db.astype(np.float64) ** 2).sum(-1).mean())
+    # below the data's energy: better than the mean (zero) for every row
+    check(len(part_s) == 2 and 0 < db_mse < energy and 0 < val_mse < energy,
+          f"PQ: MSE {val_mse} / {db_mse} against an energy of {energy}")
+
+    # the model's encode on the card against the CPU's, on a few DB rows
+    from qinco_torch.models.pq_qinco import pq_encode
+    from qinco_torch.tasks.pq_task import load_pq_checkpoint
+
+    x = torch.from_numpy(db[:64])
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        params, sub_spec, n_parts = load_pq_checkpoint(model, device=dev)
+        outs.append(pq_encode(params, sub_spec, n_parts, x.to(dev)))
+    agree = (outs[0][0].cpu() == outs[1][0]).float().mean().item()
+    xhat_err = (outs[0][1].cpu() - outs[1][1]).abs().max().item()
+    check(agree >= 0.99 and xhat_err <= 1e-3,
+          f"PQ encode on the card vs the CPU: codes agree {agree}, xhat max |diff| {xhat_err}")
+    params, sub_spec, n_parts = load_pq_checkpoint(model, device=device)
+    chunk = torch.from_numpy(db[:1024]).to(device)
+    breakdown = device_breakdown(lambda: pq_encode(params, sub_spec, n_parts, chunk))
+    return dict(D=PQ_D, args=PQ_ARGS, train_rows=PQ_TRAIN, val_rows=PQ_VAL, db=PQ_DB,
+                queries=PQ_QUERIES, epochs_run=epochs, train_pq_s=train_s, opq_s=opq_s,
+                part_train_s=part_s, eval_pq_s=eval_s, encode_s=enc_s,
+                encode_vec_s=PQ_DB / enc_s, val_mse=val_mse, db_mse=db_mse, db_energy=energy,
+                **dict(zip(("R@1", "R@10", "R@100"), recalls)),
+                card_vs_cpu_code_agreement=agree, card_vs_cpu_xhat_max_abs=xhat_err,
+                train_pq_peak_gib=train_peak_gib, encode_chunk_breakdown=breakdown)
+
+
+def legacy_phase(seed: int, device, workdir: Path, train_dir: Path) -> dict:
+    """The legacy phase (item 7 of the docstring); returns its JSON record
+    with the phase's kernel launches."""
+    t_phase = time.perf_counter()
+    spec = spec_of("qinco2-S")
+    model = train_dir / "model.npz"
+    tally = LaunchTally()
+    res = dict(convert=legacy_convert(spec, device, workdir, train_dir, tally))
+    source = random_model(spec, seed, device)  # the train phase's data distribution
+    res["codec"] = legacy_codec(spec, device, workdir, model,
+                                synthetic_data(spec, source, CODEC_ROWS, seed + 30, NOISE), tally)
+    res["search_2stage"] = legacy_two_stage(spec, device, workdir, model, source, seed, tally)
+    del source
+    torch.cuda.empty_cache()
+    res["pq"] = legacy_pq(device, workdir, seed, tally)
+    res["launches"] = tally.total
+    res["reduced"] = [
+        "convert: the train phase's 32-step qinco2-S checkpoint, not a reference-trained one; "
+        "the QINCo1-era file has random weights",
+        f"encode_codec / decode_codec: {CODEC_ROWS} rows, not a whole DB",
+        f"search_2stage: the AQ fit on {TWO_STAGE_TRAIN} rows; nshort {list(TWO_STAGE_NSHORT)} "
+        "of the reference's 10..1000 sweep; synthetic data, not BigANN/Deep1M",
+        f"PQ: D = {PQ_D} synthetic rows, not FB-ssnpp; {PQ_TRAIN} + {PQ_VAL} training rows, "
+        "epochs=1 with stop_patience=0 (two passes), not 60 epochs over millions; "
+        f"a {PQ_DB}-row DB with {PQ_QUERIES} queries, not 1M rows",
+    ]
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"legacy": res})
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1038,15 +1385,22 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
-        train = train_phase(seed, device, Path(tmp))
-    for k, v in train["launches"].items():
-        launches[k] += v
-    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
-        search = search_phase(seed, device, Path(tmp))
-    for run in search["encode"].values():
-        for k, v in run["launches"].items():
+    # the train phase's directory lives on to the legacy phase, which
+    # converts and encodes with its checkpoint
+    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as train_dir:
+        train = train_phase(seed, device, Path(train_dir))
+        for k, v in train["launches"].items():
             launches[k] += v
+        with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+            search = search_phase(seed, device, Path(tmp))
+        for run in search["encode"].values():
+            for k, v in run["launches"].items():
+                launches[k] += v
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+            legacy = legacy_phase(seed, device, Path(tmp), Path(train_dir))
+    for k, v in legacy["launches"].items():
+        launches[k] += v
 
     emit({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=replaces, launches=launches[k],

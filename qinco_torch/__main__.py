@@ -6,10 +6,12 @@
 Any config key takes a dotted ``key=value`` override; ``model_args=``
 selects a preset of ``qinco_torch/configs/model_args/`` and
 ``encode_profile=`` one of the encode bundles.  Tasks: ``train``,
-``eval_valset``, ``eval``, ``eval_time`` and the search pipeline's
-``ivf_centroids``, ``encode``, ``build_index``, ``train_pairwise_decoder``
-and ``search``; they run on the CUDA device, or on the CPU with
-``cpu=true``.
+``eval_valset``, ``eval``, ``eval_time``; ``convert`` (a reference
+``.pt`` checkpoint to npz); the search pipeline's ``ivf_centroids``,
+``encode``, ``build_index``, ``train_pairwise_decoder`` and ``search``;
+the QINCo1-era ``encode_codec``, ``decode_codec``, ``search_2stage``,
+``train_pq`` and ``eval_pq``.  They run on the CUDA device, or on the CPU
+with ``cpu=true``.
 """
 
 import sys

@@ -1,4 +1,12 @@
-from .vecs_io import bvecs_mmap, fvecs_mmap, ivecs_mmap, open_vectors
+from .vecs_io import (
+    bvecs_mmap,
+    bvecs_write,
+    fvecs_mmap,
+    fvecs_write,
+    ivecs_mmap,
+    ivecs_write,
+    open_vectors,
+)
 from .datasets import (
     Batch,
     BlockShuffledLoader,
@@ -11,6 +19,9 @@ __all__ = [
     "bvecs_mmap",
     "fvecs_mmap",
     "ivecs_mmap",
+    "bvecs_write",
+    "fvecs_write",
+    "ivecs_write",
     "open_vectors",
     "Batch",
     "BlockShuffledLoader",

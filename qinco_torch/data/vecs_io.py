@@ -1,7 +1,8 @@
 """Memory-mapped readers for the classic ANN vector file formats
 (counterpart of ``qinco_tpu/data/vecs_io.py``): each vector is
 ``[int32 dim][dim × elem]`` with elem uint8 (.bvecs), float32 (.fvecs) or
-int32 (.ivecs); ``.npy`` files are memory-mapped as they are.
+int32 (.ivecs); ``.npy`` files are memory-mapped as they are.  The
+writers give the same bytes as the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,6 +41,30 @@ def fvecs_mmap(fname: str | Path) -> np.ndarray:
 
 def ivecs_mmap(fname: str | Path) -> np.ndarray:
     return _xvecs_mmap(fname, np.int32, 4)
+
+
+def _xvecs_write(fname: str | Path, x: np.ndarray, dtype) -> None:
+    x = np.ascontiguousarray(np.asarray(x).astype(dtype))
+    n, d = x.shape
+    header = np.full((n, 1), d, dtype=np.int32)
+    if dtype == np.uint8:
+        out = np.concatenate([header.view(np.uint8).reshape(n, 4), x], axis=1)
+    else:
+        out = np.concatenate([header, x.view(np.int32)], axis=1)
+    with open(fname, "wb") as f:
+        out.tofile(f)
+
+
+def fvecs_write(fname: str | Path, x: np.ndarray) -> None:
+    _xvecs_write(fname, x, np.float32)
+
+
+def ivecs_write(fname: str | Path, x: np.ndarray) -> None:
+    _xvecs_write(fname, x, np.int32)
+
+
+def bvecs_write(fname: str | Path, x: np.ndarray) -> None:
+    _xvecs_write(fname, x, np.uint8)
 
 
 def open_vectors(filepath: str | Path, dataname: str = "data") -> np.ndarray:

@@ -139,30 +139,26 @@ class BaseTask:
         raise NotImplementedError
 
 
-# Tasks of the JAX package that later slices port, by ROADMAP item.
-NOT_PORTED = {
-    "convert": "A10", "train_pq": "A10", "eval_pq": "A10", "encode_codec": "A10",
-    "decode_codec": "A10", "search_2stage": "A10",
-}
-
-
 def get_task(name: str):
-    from . import eval_task, search_tasks, train_task
+    from . import codec_task, convert_task, eval_task, pq_task, search_tasks, train_task
 
     registry = {
         "train": train_task.TrainTask,
         "eval_valset": train_task.TrainTask,  # the train task's eval path
         "eval": eval_task.EvalTask,
         "eval_time": eval_task.EvalTask,
+        "convert": convert_task.ConvertTask,
         "ivf_centroids": search_tasks.IVFTrainTask,
         "encode": search_tasks.EncodeDBTask,
         "build_index": search_tasks.BuildIndexTask,
         "train_pairwise_decoder": search_tasks.TrainPairwiseDecoderTask,
         "search": search_tasks.SearchTask,
+        "train_pq": pq_task.PQTrainTask,
+        "eval_pq": pq_task.PQEvalTask,
+        "encode_codec": codec_task.EncodeCodecTask,
+        "decode_codec": codec_task.DecodeCodecTask,
+        "search_2stage": codec_task.TwoStageSearchTask,
     }
-    if name in NOT_PORTED:
-        raise ValueError(f"Task {name!r} is not ported to qinco_torch yet "
-                         f"(ROADMAP item {NOT_PORTED[name]}); available: {sorted(registry)}")
     if name not in registry:
         raise ValueError(f"Unknown task {name!r}; available: {sorted(registry)}")
     return registry[name]

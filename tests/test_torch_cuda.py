@@ -475,3 +475,85 @@ def test_pairwise_decoder_on_the_card_matches_the_native_library(cuda):
     cents = rng.normal(size=(nlist, D)).astype(np.float32)
     np.testing.assert_allclose(gpu.scores(xq, codes, cents, nmid),
                                cpu.scores(xq, codes, cents, nmid), rtol=1e-4, atol=1e-4)
+
+
+def _params_to(p, device):
+    """QINCo parameters ``p`` copied to ``device``."""
+    from qinco_torch.models.params import QincoParams, StepParams
+
+    steps = StepParams(*(None if a is None else a.to(device) for a in p.steps))
+    return QincoParams(p.codebook0.to(device), steps, p.data_mean.to(device),
+                       p.data_std.to(device))
+
+
+@pytest.mark.cuda
+def test_two_stage_search_on_the_card_matches_the_cpu(cuda):
+    """The two-stage search at qinco2-S widths (f32) over 2^16 random codes:
+    the card's ids equal the CPU's on >= 99.9% of entries (f32 products
+    summed in another order may swap a near tie)."""
+    from chip_smoke import random_model
+    from qinco_torch.models.qinco import decode_raw
+    from qinco_torch.search.two_stage import run_search_two_stage
+
+    spec = QincoSpec(D=128, K=256, M=8, L=2, de=128, dh=256, A=16, B=32)
+    params = random_model(spec, 0, "cpu")
+    g = torch.Generator().manual_seed(0)
+    codes = torch.randint(0, spec.K, (spec.M, 1 << 16), generator=g, dtype=torch.int32)
+    books = torch.randn((spec.M, spec.K, spec.D), generator=g)
+    books *= 0.5 ** torch.arange(spec.M)[:, None, None]
+    xq = decode_raw(params, spec, codes[:, :64]) + 0.01 * torch.randn((64, spec.D), generator=g)
+    gt = np.arange(64)[:, None]
+    args = (codes.numpy(), books.numpy(), xq.numpy(), gt)
+    on_card = _params_to(params, cuda)
+    I_cpu, r_cpu = run_search_two_stage(params, spec, *args, nshort=200, log=lambda *a: None)
+    I_card, r_card = run_search_two_stage(on_card, spec, *args, nshort=200, log=lambda *a: None)
+    assert I_card.shape == I_cpu.shape == (64, 100)
+    assert (I_card == I_cpu).mean() >= 0.999
+    assert all(abs(r_card[k] - r_cpu[k]) <= 1 / 64 for k in r_cpu)
+
+
+@pytest.mark.cuda
+def test_pq_encode_on_the_card_matches_the_cpu(cuda):
+    """PQ-QINCo 2x16x8 with OPQ at D = 256 (the exact f32 profile, A = 0):
+    codes on the card equal the CPU's on >= 99% of entries, and the rows
+    whose codes all agree reconstruct within rtol 1e-5, atol 1e-4."""
+    from qinco_torch.models.params import StepParams
+    from qinco_torch.models.pq_qinco import init_pq_params, pq_encode
+
+    sub = QincoSpec(D=128, K=256, M=16, L=2, de=128, dh=256, A=0, B=1)
+    g = torch.Generator().manual_seed(0)
+    opq, _ = torch.linalg.qr(torch.randn((256, 256), generator=g))
+    p = init_pq_params(sub, 2, g, opq=opq.numpy(), device="cpu")
+    fill = lambda a: a if a is None or a.any() else 0.05 * torch.randn(a.shape, generator=g)
+    p = p._replace(parts=p.parts._replace(steps=StepParams(*(fill(a) for a in p.parts.steps))),
+                   part_scales=torch.tensor([0.8, 1.2]))
+    on_card = p._replace(parts=_params_to(p.parts, cuda), opq=p.opq.to(cuda),
+                         part_scales=p.part_scales.to(cuda))
+    x = 3.0 * torch.randn((64, 256), generator=g)
+    c_cpu, x_cpu = pq_encode(p, sub, 2, x)
+    c_card, x_card = pq_encode(on_card, sub, 2, x.to(cuda))
+    same = c_card.cpu() == c_cpu
+    assert same.float().mean() >= 0.99
+    rows = same.all(0).all(0)
+    np.testing.assert_allclose(x_card.cpu()[rows], x_cpu[rows], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_converted_checkpoint_encodes_as_its_source_on_the_card(cuda, tmp_path):
+    """A qinco2-S model written as a reference ``.pt`` and read back by the
+    ``.pt`` importer encodes 8,192 vectors under the parity profile to the
+    same codes, bit for bit, as the model it came from."""
+    from chip_smoke import NOISE, random_model, reference_state, spec_of, synthetic_data
+    from qinco_torch.checkpoint import load_torch_checkpoint, params_from_torch_state
+    from qinco_torch.models.params import init_model_state
+    from qinco_torch.models.qinco import encode_chunked
+
+    spec = spec_of("qinco2-S")
+    params = random_model(spec, 1, cuda)
+    torch.save({"model": reference_state(params, spec, init_model_state(spec, device=cuda))},
+               str(tmp_path / "m.pt"))
+    model_sd, _ = load_torch_checkpoint(tmp_path / "m.pt")
+    back, _ = params_from_torch_state(model_sd, spec, device=cuda)
+    x = synthetic_data(spec, params, 8192, 2, NOISE)
+    np.testing.assert_array_equal(encode_chunked(back, spec, x, batch=1024),
+                                  encode_chunked(params, spec, x, batch=1024))

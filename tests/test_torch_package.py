@@ -42,11 +42,16 @@ def test_imports_with_jax_and_qinco_tpu_absent():
         "import qinco_torch.search, qinco_torch.search.index, qinco_torch.search.index_build\n"
         "import qinco_torch.search.pairwise_decoder, qinco_torch.search.search\n"
         "import qinco_torch.search.operating_points, qinco_torch.search.optim_order\n"
+        "import qinco_torch.codec, qinco_torch.ops.opq, qinco_torch.models.pq_qinco\n"
+        "import qinco_torch.search.two_stage, qinco_torch.tasks.convert_task\n"
+        "import qinco_torch.tasks.codec_task, qinco_torch.tasks.pq_task\n"
         "from qinco_torch.data import load_queries_data\n"
         "from qinco_torch.metrics import compute_recalls\n"
         "from qinco_torch.tasks import get_task\n"
         "assert get_task('train') and get_task('eval_time')\n"
-        "for t in ('ivf_centroids', 'encode', 'build_index', 'train_pairwise_decoder', 'search'):\n"
+        "for t in ('ivf_centroids', 'encode', 'build_index', 'train_pairwise_decoder', 'search',\n"
+        "          'convert', 'train_pq', 'eval_pq', 'encode_codec', 'decode_codec',\n"
+        "          'search_2stage'):\n"
         "    assert get_task(t)\n"
         "import chip_smoke\n"
         "from qinco_torch.models import QincoSpec, init_params, encode, decode\n"
@@ -142,3 +147,13 @@ def test_routes_match_jax(route):
     assert codes.shape == (ts.M_ivf, 32), f"{route}: codes of shape {tuple(codes.shape)}"
     agree = (codes.numpy() == np.asarray(jax_encode(jp, js, x)[0])).mean()
     assert agree >= 0.95, f"{route}: the port's codes agree with JAX's on {agree:.3f} < 0.95"
+
+
+def test_v1_norms_asset_is_the_ports_own_copy():
+    """``task=convert`` reads the QINCo1-era norms from the port's own copy
+    of the JAX package's asset, byte for byte the same file."""
+    from qinco_torch.tasks import convert_task
+
+    path = convert_task._V1_NORMS_PATH
+    assert path.resolve().is_relative_to(ROOT / "qinco_torch")
+    assert path.read_bytes() == (ROOT / "qinco_tpu/assets/v1_dataset_norms.npz").read_bytes()

@@ -15,6 +15,7 @@ from qinco_torch.__main__ import main
 from qinco_torch.config import load_config
 from qinco_torch.models.params import param_leaves
 from qinco_torch.tasks import get_task
+from qinco_torch.tasks.base import BaseTask
 from qinco_torch.tasks.train_task import TrainTask
 from qinco_torch.train.loop import compute_mse
 
@@ -121,8 +122,16 @@ def test_jax_trainer_resumes_from_a_port_checkpoint(tiny_data, tmp_path, capsys)
     assert f"Start epoch {meta['epoch']} " in printed and "Start epoch 0 " not in printed
 
 
-@pytest.mark.parametrize("name, item", [("encode_codec", "A10"), ("search_2stage", "A10"),
-                                        ("convert", "A10"), ("train_pq", "A10")])
-def test_tasks_of_later_slices_name_their_roadmap_item(name, item):
-    with pytest.raises(ValueError, match=item):
-        get_task(name)
+# The task names of the JAX package's registry (qinco_tpu/tasks/base.py).
+JAX_TASKS = ["train", "eval_valset", "eval", "eval_time", "convert", "ivf_centroids", "encode",
+             "build_index", "train_pairwise_decoder", "search", "train_pq", "eval_pq",
+             "encode_codec", "decode_codec", "search_2stage"]
+
+
+@pytest.mark.parametrize("name", JAX_TASKS)
+def test_every_task_of_the_jax_registry_resolves(name):
+    from qinco_tpu.tasks import get_task as jax_get_task
+
+    task = get_task(name)
+    assert isinstance(task, type) and issubclass(task, BaseTask)
+    assert task.__name__ == jax_get_task(name).__name__
