@@ -52,7 +52,8 @@
    1.01, codes agree >= 0.9).
    Then two short runs of ``task=train`` from one seed (the RQ bootstrap's
    k-means, 4 steps, their validation passes) must end at the same
-   parameters and log the same losses, bit for bit.
+   parameters, log the same losses and launch the same kernels, bit for
+   bit.
 6. Search phase at qinco2-S width (parity), through the search tasks of
    ``python -m qinco_torch``: first one assignment-and-accumulate pass of
    the k-means at ivf_K = 2^20 over 2^18 random rows, timed, with its f32
@@ -101,7 +102,33 @@
      exact profile); the ``.pqnpz``'s encode on the card against the
      CPU's, and the device time by kernel of one 1024-row encode.
    One ``{"legacy": ...}`` line, with a ``reduced`` list of each cut.
-8. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
+8. Distributed phase, after the train phase, on its data, each group a
+   one-rank NCCL group over loopback; the CLI runs start it the way users
+   do: ``python -m torch.distributed.run --standalone --nproc_per_node=1``.
+   - ``-m qinco_torch task=train`` with the arguments of the first
+     repeated run: the same parameters, model state, logged losses and
+     validation MSEs, bit for bit, and the same kernel launches (the
+     ``Kernel launches`` line of the task's log);
+   - ``task=encode`` of ``DIST_ENCODE_ROWS`` training rows with that
+     checkpoint, under the group and (``python -m qinco_torch``) without:
+     ``n_parts == 1``, the two part files equal, the exact B2 and B3
+     launch counts, each run's encode vec/s;
+   - a worker (this script with ``--dist-worker``, rank 0 of a world of
+     one through torchrun's variables): ``sharded_coarse_topk`` over a
+     ``TOPK_BOOK`` x 128 book for ``TOPK_QUERIES`` queries at k =
+     ``TOPK_K`` gives ``sqdist_topk``'s ids, and the ms of each; from the
+     train phase's checkpoint, on one batch, a parity train step with the
+     mesh equals one without it bit for bit and makes ``2·Ms + 4``
+     collectives (their bytes recorded); the ms of a step without the mesh
+     and with it (CUDA events; 12 turns of 10 steps in the order plain,
+     group, group, plain; the median turn of each, and the median
+     group-minus-plain of the 6 side-by-side pairs), the 10 host operations with the most
+     self CPU time in one plain and one group step (torch.profiler), and
+     the host and device ms of one all-reduce of a statistics-sized and of
+     a step-sized buffer.
+   One ``{"dist": ...}`` line; the group runs' launches join the kernel
+   summary's counts.
+9. The kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -114,7 +141,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -140,7 +170,11 @@ from qinco_torch.models import qinco as qinco_model
 from qinco_torch.models.qinco import decode, decode_raw, encode, encode_chunked
 from qinco_torch.models.spec import spec_from_cfg
 from qinco_torch.ops import kernels
+from qinco_torch.ops.distances import sqdist_topk
 from qinco_torch.ops.kmeans import DIST_BUDGET_ELEMS, accumulate_pass
+from qinco_torch.parallel import distributed as pdist
+from qinco_torch.parallel import mesh as pmesh
+from qinco_torch.parallel.sharded_ops import shard_codebook, sharded_coarse_topk
 from qinco_torch.search.index import build_native
 from qinco_torch.search.pairwise_decoder import EVAL_ROWS
 from qinco_torch.search.pairwise_decoder import _pair_error as pair_error
@@ -166,6 +200,11 @@ NOISE, SPEED_NOISE = 0.05, 0.5
 TRAIN_ROWS, TRAIN_VAL, TRAIN_LOOP, TRAIN_BATCH = 65536, 8192, 16384, 1024
 # The repeated short run: rows an epoch, 2 epochs = 4 steps.
 REPEAT_LOOP = 2048
+# Distributed phase: DB rows of its encode runs; the sharded top-k's book
+# rows (the production IVF book), queries and k.
+DIST_ENCODE_ROWS = 16384
+TOPK_BOOK, TOPK_QUERIES, TOPK_K = 1 << 20, 1024, 64
+ROOT = Path(__file__).resolve().parent
 # Search phase (scripts/scale_regression.py's anchor, D=128, ivf_K = 2^16,
 # its 10M-row DB cut to fit the smoke): training rows (plus the config's
 # validation rows), DB rows, queries, k-means iterations.
@@ -788,28 +827,240 @@ def repeated_train_runs(seed: int, workdir: Path, data_path: Path) -> dict:
     of ``REPEAT_LOOP`` rows = 4 steps and their validation passes): the
     checkpoints' parameters and model state, and every logged loss and
     validation MSE, must be equal bit for bit."""
-    spec = spec_of("qinco2-S")
     runs = []
     for r in range(2):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
         out = workdir / f"repeat_{r}.npz"
-        log = run_main(["task=train", "model_args=qinco2-S", f"trainset={data_path}",
-                        f"output={out}", f"ds.valset={TRAIN_VAL}", f"ds.loop={REPEAT_LOOP}",
-                        "epochs=1", "scheduler.stop_patience=0", f"seed={seed}",
-                        "encode_profile=parity", f"batch={TRAIN_BATCH}", "verbose=false"])
+        log = run_main(repeat_args(seed, data_path, out))
         steps = int(_found(r"Training done: (\d+) steps", log)[0])
         check(steps == 2 * REPEAT_LOOP // TRAIN_BATCH, f"repeat run {r}: {steps} steps")
-        ck = load_checkpoint(out, spec, device="cuda")
-        tensors = param_leaves(ck["params"]) + list(ck["mstate"] or [])
-        logged = re.findall(r"RQ init train MSE=\S+|train loss \S+|All losses: \[\[.*\]\]|"
-                            r"Validation metrics: \[\[MSE=[^\]]+\]\]", log)
-        runs.append((tensors, logged))
-    (ta, la), (tb, lb) = runs
+        runs.append((checkpoint_tensors(out), logged_values(log), dict(kernels.LAUNCHES)))
+    (ta, la, ka), (tb, lb, kb) = runs
     same_tensors = len(ta) == len(tb) and all(torch.equal(a, b) for a, b in zip(ta, tb))
     same_log = la == lb
     check(same_tensors, "two training runs from one seed end at different parameters")
     check(same_log, f"two training runs from one seed logged different losses: {la} vs {lb}")
+    check(ka == kb, f"two training runs from one seed launched {ka} and {kb}")
     return dict(steps=2 * REPEAT_LOOP // TRAIN_BATCH, tensors=len(ta), logged=la,
-                bit_identical=same_tensors and same_log)
+                bit_identical=same_tensors and same_log, launches=ka)
+
+
+def repeat_args(seed: int, data_path: Path, out: Path) -> list[str]:
+    """The arguments of the repeated short training run."""
+    return ["task=train", "model_args=qinco2-S", f"trainset={data_path}", f"output={out}",
+            f"ds.valset={TRAIN_VAL}", f"ds.loop={REPEAT_LOOP}", "epochs=1",
+            "scheduler.stop_patience=0", f"seed={seed}", "encode_profile=parity",
+            f"batch={TRAIN_BATCH}", "verbose=false"]
+
+
+def checkpoint_tensors(path: Path) -> list:
+    """A qinco2-S checkpoint's parameters and model state, on the card."""
+    ck = load_checkpoint(path, spec_of("qinco2-S"), device="cuda")
+    return param_leaves(ck["params"]) + list(ck["mstate"] or [])
+
+
+def logged_values(log: str) -> list[str]:
+    """The losses and validation MSEs that a training run logged."""
+    return re.findall(r"RQ init train MSE=\S+|train loss \S+|All losses: \[\[.*\]\]|"
+                      r"Validation metrics: \[\[MSE=[^\]]+\]\]", log)
+
+
+def launch(args: list[str], group: str | None = "torchrun",
+           timeout: float = 300) -> tuple[str, float]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1
+    <args>`` (a one-rank NCCL group over loopback); with ``group="env"``
+    ``python <args>`` as rank 0 of a world of one (torchrun's variables, a
+    free port on localhost); with ``group=None`` ``python <args>``.  From
+    the checkout's root: (its output, which also goes to stderr; its
+    seconds).  The process and its children run in their own session,
+    killed whole if they outlive ``timeout``."""
+    head = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1"] \
+        if group == "torchrun" else []
+    env = dict(os.environ)
+    if group == "env":
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *head, *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                            env=env)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+    sec = time.perf_counter() - t0
+    sys.stderr.write(out)
+    check(proc.returncode == 0, f"{' '.join(head[1:2] + args[:2])} returned {proc.returncode}")
+    return out, sec
+
+
+def group_launches(log: str) -> dict:
+    return json.loads(_found(r"Kernel launches: (\{.*\})", log)[0])
+
+
+def dist_phase(seed: int, workdir: Path, repeat: dict) -> dict:
+    """The distributed phase (item 8 of the docstring), on the train
+    phase's data and checkpoints in ``workdir``; returns its JSON record
+    with the group runs' kernel launches."""
+    spec = spec_of("qinco2-S")
+    data_path = workdir / "train.npy"
+    res = {}
+    t_phase = time.perf_counter()
+    # 1. the repeated run's training under a one-rank group: the same bits
+    out = workdir / "dist_train.npz"
+    log, res["train_launch_s"] = launch(["-m", "qinco_torch", *repeat_args(seed, data_path, out)])
+    check("Process group: 1 rank(s), mesh data=1 x model=1" in log, "train: no process group")
+    launches = group_launches(log)
+    check(launches == repeat["launches"],
+          f"train under the group launched {launches}, the plain run {repeat['launches']}")
+    ta, tb = checkpoint_tensors(out), checkpoint_tensors(workdir / "repeat_0.npz")
+    check(len(ta) == len(tb) and all(torch.equal(a, b) for a, b in zip(ta, tb)),
+          "training under a one-rank group ends at other parameters than without it")
+    check(logged_values(log) == repeat["logged"],
+          "training under a one-rank group logged other losses than without it")
+    res["train_bit_identical"] = True
+
+    # 2. encode with that checkpoint, under the group and without it, each
+    # in a fresh process (so both encode timers hold the same warm-up)
+    args = ["-m", "qinco_torch", "task=encode", f"db={data_path}", f"ds.db={DIST_ENCODE_ROWS}",
+            f"model={out}", "encode_profile=parity", f"batch={TRAIN_BATCH}", "verbose=false"]
+    log_g, res["encode_launch_s"] = launch([*args, f"output={workdir / 'dist_codes.npz'}"])
+    log_p, res["encode_plain_launch_s"] = launch([*args, f"output={workdir / 'plain_codes.npz'}"],
+                                                 group=None)
+    check("Process group" not in log_p, "encode without the group: a process group")
+    enc = group_launches(log_g)
+    expect_encode_launches("encode under the group", enc, [DIST_ENCODE_ROWS], spec)
+    expect_encode_launches("encode without the group", group_launches(log_p),
+                           [DIST_ENCODE_ROWS], spec)
+    for k, v in enc.items():
+        launches[k] += v
+    check(int(np.load(workdir / "dist_codes.npz")["n_parts"]) == 1, "encode: n_parts != 1")
+    part_g = np.load(workdir / "dist_codes.part_0.npz")["codes"]
+    part_p = np.load(workdir / "plain_codes.part_0.npz")["codes"]
+    check(part_g.shape == (DIST_ENCODE_ROWS, spec.M_ivf) and np.array_equal(part_g, part_p),
+          "encode: the part files under the group and without it differ")
+    secs = [float(_found(r"Encoding done in \S+ \((\S+)s\)", lg)[0]) for lg in (log_g, log_p)]
+    res.update(encode_rows=DIST_ENCODE_ROWS, encode_vec_s_group=DIST_ENCODE_ROWS / secs[0],
+               encode_vec_s_plain=DIST_ENCODE_ROWS / secs[1], encode_parts_equal=True)
+
+    # 3, 4. the sharded top-k and the step's cost, in a worker of a group
+    wlog, res["worker_launch_s"] = launch([str(ROOT / "chip_smoke.py"), "--dist-worker",
+                                           str(workdir), "--seed", str(seed)], group="env")
+    res.update(json.loads(_found(r"\{\"dist_worker\": .*\}", wlog)[0])["dist_worker"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["launches"] = launches
+    emit({"dist": res})
+    return res
+
+
+def host_top(fn, n: int = 10) -> list:
+    """The ``n`` operations with the most host (self CPU) ms in one call of
+    ``fn``, from torch.profiler: [name, ms, calls]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    return [[e.key, e.self_cpu_time_total / 1e3, e.count] for e in rows[:n]]
+
+
+def dist_worker(seed: int, workdir: Path) -> None:
+    """Items 8.3 and 8.4, in the one rank of a group that
+    ``torch.distributed.run`` starts: the sharded top-k against the plain
+    one, and a train step with the mesh against one without it (the same
+    bits, the collectives it makes, the ms of each); prints one
+    ``{"dist_worker": ...}`` line."""
+    import torch.distributed as dist
+
+    check(pdist.maybe_init_distributed(cpu=False), "no process group in the environment")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = pmesh.make_mesh()
+        device = torch.device("cuda", torch.cuda.current_device())
+        res = dict(backend=dist.get_backend(), world=mesh.world)
+
+        g = torch.Generator(device=device).manual_seed(seed)
+        book = torch.randn((TOPK_BOOK, 128), generator=g, device=device)
+        xq = book[:TOPK_QUERIES] + 0.5 * torch.randn((TOPK_QUERIES, 128), generator=g,
+                                                     device=device)
+        shard = shard_codebook(mesh, book)
+        ids, d = sharded_coarse_topk(mesh, xq, shard, TOPK_K, exact=False)
+        want_ids, want_d = sqdist_topk(xq, book, TOPK_K)
+        check(torch.equal(ids, want_ids), "sharded top-k: ids differ from sqdist_topk's")
+        res.update(topk_book=TOPK_BOOK, topk_queries=TOPK_QUERIES, topk_k=TOPK_K,
+                   topk_ids_equal=True, topk_max_abs_err=float((d - want_d).abs().max()))
+        del ids, d, want_ids, want_d
+        res["topk_ms"] = time_ms(lambda: sharded_coarse_topk(mesh, xq, shard, TOPK_K,
+                                                             exact=False), reps=5, warmup=1)
+        res["topk_plain_ms"] = time_ms(lambda: sqdist_topk(xq, book, TOPK_K), reps=5, warmup=1)
+        del book, shard
+        torch.cuda.empty_cache()
+
+        spec = spec_of("qinco2-S")
+        trained = load_checkpoint(workdir / "model.npz", spec, device=device)["params"]
+        cfg = load_config(["model_args=qinco2-S"])
+        xb = torch.from_numpy(np.load(workdir / "train.npy")[:TRAIN_BATCH]).to(device)
+        wb = torch.ones((TRAIN_BATCH,), device=device)
+
+        def fresh_step(m):
+            p = _clone(trained)
+            opt = tts.build_optimizer(cfg, p, spec)
+            step = tts.make_train_step(spec, opt, cfg.grad_clip, mesh=m)
+            mstate = init_model_state(spec, device=device)
+            return p, lambda: step(p, mstate, xb, wb)
+
+        (pa, step_a), (pb, step_b) = fresh_step(None), fresh_step(mesh)
+        _, ma, oa = step_a()
+        for k in pmesh.COLLECTIVES:
+            pmesh.COLLECTIVES[k] = 0
+        _, mb, ob = step_b()
+        torch.cuda.synchronize()
+        coll = dict(pmesh.COLLECTIVES)
+        same = all(torch.equal(a, b) for a, b in zip(param_leaves(pa), param_leaves(pb)))
+        same &= all(torch.equal(a, b) for a, b in zip(ma, mb))
+        same &= torch.equal(oa.total_loss, ob.total_loss) and torch.equal(oa.codes, ob.codes)
+        check(same, "a train step with the one-rank mesh differs from the plain step")
+        # two for each MLP step's residual statistics and two for the x0
+        # statistics, then two a step (train/train_step.py)
+        want = 2 * spec.n_mlp_steps + 4
+        check(coll["calls"] == want, f"train step: {coll['calls']} collectives, expected {want}")
+        # turns: plain, group, group, plain, three times over; each turn the
+        # median of 10 steps, each figure the median of its 6 turns; the
+        # difference also as the median of the 6 side-by-side pairs of turns
+        order = (step_a, step_b, step_b, step_a) * 3
+        turns = [time_ms(fn, reps=10) for fn in order]
+        by = {k: statistics.median(t for f, t in zip(order, turns) if f is fn)
+              for k, fn in (("plain", step_a), ("group", step_b))}
+        pairs = [turns[i + 1] - turns[i] if order[i] is step_a else turns[i] - turns[i + 1]
+                 for i in range(0, len(turns), 2)]
+        res.update(step_bit_identical=True, step_collectives=coll["calls"],
+                   step_collective_bytes=coll["bytes"], step_ms_plain=by["plain"],
+                   step_ms_group=by["group"], step_ms_group_minus_plain_pairs=pairs,
+                   step_ms_group_minus_plain=statistics.median(pairs), step_ms_turns=turns,
+                   step_host_top_plain=host_top(step_a), step_host_top_group=host_top(step_b))
+        # one all_reduce_sum of a statistics-sized and of a step-sized buffer:
+        # host ms a call (100 calls, one sync) and device ms (CUDA events)
+        for label, n in (("stats", spec.D + 1), ("step", coll["bytes"] // 4)):
+            buf = torch.ones((n,), device=device)
+            pmesh.all_reduce_sum(mesh, [buf])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                pmesh.all_reduce_sum(mesh, [buf])
+            torch.cuda.synchronize()
+            res[f"allreduce_{label}_host_ms"] = (time.perf_counter() - t0) * 10
+            res[f"allreduce_{label}_ms"] = time_ms(lambda: pmesh.all_reduce_sum(mesh, [buf]))
+        print(json.dumps({"dist_worker": res}), flush=True)
+    finally:
+        pdist.shutdown()
 
 
 def kmeans_pass(seed: int, device) -> dict:
@@ -1305,10 +1556,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=8192, help="vectors per encode run")
+    ap.add_argument("--dist-worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    if args.dist_worker:
+        dist_worker(args.seed, args.dist_worker)
+        return
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1390,6 +1645,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as train_dir:
         train = train_phase(seed, device, Path(train_dir))
         for k, v in train["launches"].items():
+            launches[k] += v
+        dist = dist_phase(seed, Path(train_dir), train["repeat"])
+        for k, v in dist["launches"].items():
             launches[k] += v
         with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
             search = search_phase(seed, device, Path(tmp))

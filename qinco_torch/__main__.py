@@ -12,8 +12,18 @@ selects a preset of ``qinco_torch/configs/model_args/`` and
 the QINCo1-era ``encode_codec``, ``decode_codec``, ``search_2stage``,
 ``train_pq`` and ``eval_pq``.  They run on the CUDA device, or on the CPU
 with ``cpu=true``.
+
+On N cards (``train``, ``eval_valset``, ``eval``, ``eval_time``,
+``ivf_centroids``, ``encode``; see ``qinco_torch/parallel``):
+
+    python -m torch.distributed.run --nproc_per_node=N -m qinco_torch task=train ...
+
+or the ``QINCO_COORDINATOR``, ``QINCO_NUM_PROCS`` and ``QINCO_PROC_ID``
+variables of the JAX package on each host.  After the task, the main rank
+prints the count of each kernel's launches in it, where any launched.
 """
 
+import json
 import sys
 
 
@@ -23,15 +33,26 @@ def main(argv=None) -> int:
         print(__doc__)
         return 0
     from qinco_torch.config import load_config
+    from qinco_torch.ops.kernels import LAUNCHES
+    from qinco_torch.parallel.distributed import maybe_init_distributed, shutdown
     from qinco_torch.tasks import get_task
 
     cfg = load_config(argv)
     if cfg.task is None:
         raise SystemExit("Please specify a task (train, eval, ...) using 'task=<name>'")
-    task = get_task(cfg.task)(cfg)
-    print(f"====================== RUNNING TASK {cfg.task}", flush=True)
-    task.run()
-    print("Task done", flush=True)
+    started = maybe_init_distributed(bool(cfg.cpu))
+    try:
+        before = dict(LAUNCHES)
+        task = get_task(cfg.task)(cfg)
+        task.print(f"====================== RUNNING TASK {cfg.task}")
+        task.run()
+        launched = {k: v - before[k] for k, v in LAUNCHES.items()}
+        if any(launched.values()):
+            task.print(f"Kernel launches: {json.dumps(launched)}")
+        task.print("Task done")
+    finally:
+        if started:
+            shutdown()
     return 0
 
 

@@ -9,9 +9,10 @@ same order for the same seed).
   block by ``np.random.default_rng(seed + epoch * 0x9E3779B9)``.
 - Epoch ``e`` of a looped trainset covers rows ``[e·loop, (e+1)·loop)
   mod N``.
-
-One process reads all rows: the JAX package's split over processes
-comes with multi-GPU training (ROADMAP A11).
+- ``shard=(i, n)`` gives data group ``i`` of ``n`` the contiguous span
+  ``i`` of each epoch's rows, every span of one length (the remainder
+  goes unread), so every rank runs the same number of batches and the
+  collectives stay in lockstep.
 """
 
 from __future__ import annotations
@@ -45,19 +46,22 @@ class BlockShuffledLoader:
         loop: int | None = None,
         block_rows: int = BLOCK_CACHE_ROWS,
         seed: int = 0,
+        shard: tuple[int, int] = (0, 1),
     ):
         self.data = data
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.block_rows = block_rows
         self.seed = seed
+        self.shard_i, self.shard_n = shard
         n = len(data)
         self.loop = min(loop, n) if loop else None
         self.window = self.loop if self.loop else n
         self.n_total = n
 
     def __len__(self) -> int:
-        return math.ceil(self.window / self.batch_size)
+        per_shard = self.window // self.shard_n if self.shard_n > 1 else self.window
+        return math.ceil(per_shard / self.batch_size)
 
     def _epoch_bounds(self, epoch: int) -> tuple[int, int]:
         """Row range [start, start+window) for this epoch's loop window."""
@@ -68,6 +72,12 @@ class BlockShuffledLoader:
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         start, end = self._epoch_bounds(epoch)
+        if self.shard_n > 1:  # this shard's contiguous span
+            per = (end - start) // self.shard_n
+            lo = start + per * self.shard_i
+            hi = start + per * (self.shard_i + 1) if self.shard_i < self.shard_n - 1 else end
+            hi = min(hi, lo + per) if per else hi  # one length on every shard
+            start, end = lo, hi
         rng = np.random.default_rng(self.seed + epoch * 0x9E3779B9) if self.shuffle else None
         bs = self.batch_size
         leftover: np.ndarray | None = None
@@ -102,10 +112,11 @@ class BlockShuffledLoader:
         return self.epoch(0)
 
 
-def load_vec_trainset(cfg):
+def load_vec_trainset(cfg, shard: tuple[int, int] = (0, 1)):
     """Training/validation split and loaders: the last ``cfg.ds.valset``
     rows are the validation set, the (optionally capped) head the
-    training set."""
+    training set.  The loaders read data group ``shard``'s rows; the
+    returned arrays are all the rows."""
     if cfg.trainset is None:
         raise ValueError("Provide a training dataset via 'trainset', or a default dataset "
                          "via 'db'")
@@ -118,19 +129,21 @@ def load_vec_trainset(cfg):
     xt = xt[: cfg.ds.trainset]
 
     loop = None if cfg.qinco1_mode else cfg.ds.loop
-    train_loader = BlockShuffledLoader(xt, cfg.batch, shuffle=True, loop=loop, seed=cfg.seed)
-    val_loader = BlockShuffledLoader(xval, cfg.batch, shuffle=False)
+    train_loader = BlockShuffledLoader(xt, cfg.batch, shuffle=True, loop=loop, seed=cfg.seed,
+                                       shard=shard)
+    val_loader = BlockShuffledLoader(xval, cfg.batch, shuffle=False, shard=shard)
     return (xt, xval), (train_loader, val_loader)
 
 
-def load_vec_db(cfg):
-    """The database rows ``[:cfg.ds.db]`` and their loader."""
+def load_vec_db(cfg, shard: tuple[int, int] = (0, 1)):
+    """The database rows ``[:cfg.ds.db]`` and their loader over data
+    group ``shard``'s rows."""
     if cfg.db is None:
         raise ValueError("Provide a database path or preset name via 'db'")
     xdb = open_vectors(cfg.db, "database")
     cfg.ds.db = min(cfg.ds.db or len(xdb), len(xdb))
     xdb = xdb[: cfg.ds.db]
-    return xdb, BlockShuffledLoader(xdb, cfg.batch, shuffle=False)
+    return xdb, BlockShuffledLoader(xdb, cfg.batch, shuffle=False, shard=shard)
 
 
 def load_queries_data(cfg):

@@ -82,12 +82,16 @@ class ScalarWriter:
 
 
 class MetricLogger:
-    """Epoch and eval cadence, best tracking, early stop."""
+    """Epoch and eval cadence, best tracking, early stop.  Off the main
+    rank (``is_main=False``) it prints nothing, writes no scalars and
+    never calls ``save_fn``; it still tracks the best MSE and the stop, so
+    every rank leaves the epoch loop together."""
 
     EPS = 1e-6
 
-    def __init__(self, cfg, *, save_fn=None):
+    def __init__(self, cfg, *, is_main: bool = True, save_fn=None):
         self.cfg = cfg
+        self.is_main = is_main
         self.save_fn = save_fn  # callable(reason): saves a checkpoint
 
         self.stop_patience = cfg.scheduler.stop_patience
@@ -100,7 +104,7 @@ class MetricLogger:
         self.smooth: dict[str, SmoothedValue] = {}
         self.val_mse = MSEMetric(scale=cfg.mse_scale)
         self.last_val_mse = float("nan")
-        self.writer = ScalarWriter(cfg.tensorboard)
+        self.writer = ScalarWriter(cfg.tensorboard if is_main else None)
         self.verbose = bool(cfg.verbose)
         self.timers.total.start()
 
@@ -120,7 +124,8 @@ class MetricLogger:
         self.best_mse_epoch = state["best_mse_epoch"]
 
     def print(self, *args) -> None:
-        print(*args, flush=True)
+        if self.is_main:
+            print(*args, flush=True)
 
     # ---- epoch ------------------------------------------------------------
     def start_epoch(self, epoch: int, n_batches: int, lr: float) -> None:
@@ -153,7 +158,7 @@ class MetricLogger:
         for k, v in losses.items():
             self.writer.add_scalar(f"Loss/{k}", v, self.cur_step)
 
-        if self.verbose:
+        if self.verbose and self.is_main:
             losses_str = " ; ".join(f"{k}={v}" for k, v in self.smooth.items())
             print("\033[K"
                   f"[T_total={self.timers.total} | T_train={self.timers.train} | "
@@ -166,7 +171,7 @@ class MetricLogger:
 
     def end_train_phase(self) -> None:
         self.timers.train.stop()
-        if self.verbose:
+        if self.verbose and self.is_main:
             print(flush=True)
 
     def end_epoch(self, val_mse: float, usage_rows=None, *, mean_loss: float | None = None,
@@ -193,7 +198,7 @@ class MetricLogger:
         self.print(f"Validation metrics: [[MSE={val_mse:g}]]")
         self.print(f"Best metrics: [[min_MSE={self.best_mse:g}]]")
 
-        if is_best and self.save_fn is not None:
+        if is_best and self.save_fn is not None and self.is_main:
             self.print("Best validation MSE so far, storing model")
             self.save_fn("best")
 
@@ -231,7 +236,7 @@ class MetricLogger:
     def step_eval_sums(self, i_batch: int, sq_err_sum: float, n_valid: int) -> None:
         """Eval progress from a batch's squared-error sum."""
         self.val_mse.update_sums(sq_err_sum, n_valid)
-        if self.verbose:
+        if self.verbose and self.is_main:
             print("\033[K"
                   f"[T_total={self.timers.total} | T_eval={self.timers.eval}] "
                   f"inference on validation split {i_batch + 1} / {self.n_eval_batches} "
@@ -239,7 +244,7 @@ class MetricLogger:
 
     def end_eval(self) -> float:
         self.timers.eval.stop()
-        if self.verbose:
+        if self.verbose and self.is_main:
             print(flush=True)
         self.last_val_mse = self.val_mse.compute()
         return self.last_val_mse

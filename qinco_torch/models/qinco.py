@@ -128,25 +128,35 @@ def decode_raw(params: QincoParams, spec: QincoSpec, codes: torch.Tensor) -> tor
 # ---------------------------------------------------------------------------
 
 
-def _target_stats(x_target: torch.Tensor, w: Optional[torch.Tensor]):
+def _local(tensors: list) -> list:
+    """The ``reduce`` of one process: the tensors as they are."""
+    return tensors
+
+
+def _target_stats(x_target: torch.Tensor, w: Optional[torch.Tensor], reduce=_local):
     """Per-dim mean/std of the residual target ``(N, F_in, D)``, optionally
     weighted by the padding mask ``w (N,)``; the mean divides by the
-    real row count."""
+    real row count.  ``reduce`` (a list of tensors -> their sums over the
+    data-parallel ranks) sums the weighted sums and counts, then the
+    squared deviations from the global mean, before each division: the
+    two-pass statistics of the global batch.  The unweighted case is one
+    process's."""
     if w is None:
         return x_target.mean(dim=(0, 1)), x_target.std(dim=(0, 1), correction=1)
     n = w.sum() * x_target.shape[1]
     wf = w[:, None, None]
-    t_mean = (x_target * wf).sum(dim=(0, 1)) / torch.clamp(n, min=1.0)
-    var = ((x_target - t_mean) ** 2 * wf).sum(dim=(0, 1)) / torch.clamp(n - 1.0, min=1.0)
-    return t_mean, torch.sqrt(var)
+    t_sum, n = reduce([(x_target * wf).sum(dim=(0, 1)), n])
+    t_mean = t_sum / torch.clamp(n, min=1.0)
+    (sq,) = reduce([((x_target - t_mean) ** 2 * wf).sum(dim=(0, 1))])
+    return t_mean, torch.sqrt(sq / torch.clamp(n - 1.0, min=1.0))
 
 
-def _maybe_target_stats(spec, x, xhat, w, want_stats):
+def _maybe_target_stats(spec, x, xhat, w, want_stats, reduce=_local):
     """EncodeStats feed training only; inference skips the reduction."""
     if not want_stats:
         z = torch.zeros((x.shape[-1],), dtype=torch.float32, device=x.device)
         return z, z
-    return _target_stats(x[:, None, :] - xhat, w)
+    return _target_stats(x[:, None, :] - xhat, w, reduce)
 
 
 def _fused_substep_ok(spec: QincoSpec, n_codes: int) -> bool:
@@ -169,6 +179,7 @@ def _beam_step(
     n_codes: int,
     w: Optional[torch.Tensor] = None,
     want_stats: bool = True,
+    reduce=_local,
 ):
     """One beam-search step.  Returns ``(xhat_next (N, F_out, D), codes
     (N, F_out), parents (N, F_out), (t_mean, t_std))``, beams ascending by
@@ -178,7 +189,8 @@ def _beam_step(
     xh = xhat.reshape(NF, D)
 
     def tail(dists, ids=None):
-        return _select_rebuild(spec, p, x, xhat, dists, F_out, n_codes, w, want_stats, ids)
+        return _select_rebuild(spec, p, x, xhat, dists, F_out, n_codes, w, want_stats, ids,
+                               reduce)
 
     if spec.has_substep() and _fused_substep_ok(spec, n_codes):
         # speed profile: binned-argmin selection fused into the scoring kernel
@@ -233,7 +245,7 @@ def _beam_step(
         real = sel % spec.K
     xhat_next = torch.gather(flat, 1, sel[..., None].expand(N, F_out, D))
 
-    t_mean, t_std = _maybe_target_stats(spec, x, xhat, w, want_stats)
+    t_mean, t_std = _maybe_target_stats(spec, x, xhat, w, want_stats, reduce)
     return xhat_next, real.int(), f_in_idx.int(), (t_mean, t_std)
 
 
@@ -248,6 +260,7 @@ def _select_rebuild(
     w: Optional[torch.Tensor],
     want_stats: bool,
     ids: Optional[torch.Tensor] = None,  # (N·F_in, n_codes) when dists packs none
+    reduce=_local,
 ):
     """The kernel beam step's tail: the exact beam top-F_out over the
     F_in·n_codes scored candidates, then their reconstructions.
@@ -270,7 +283,7 @@ def _select_rebuild(
         real = torch.gather(ids.reshape(N, F_in * n_codes), 1, top).int()
         xhat_next = kernels.rebuild_plain(spec, xh, p, real, f_in_idx)
 
-    t_mean, t_std = _maybe_target_stats(spec, x, xhat, w, want_stats)
+    t_mean, t_std = _maybe_target_stats(spec, x, xhat, w, want_stats, reduce)
     return xhat_next, real, f_in_idx, (t_mean, t_std)
 
 
@@ -282,12 +295,14 @@ def encode(
     ivf_chunk: int = 65536,
     weights: Optional[torch.Tensor] = None,
     want_stats: bool = False,
+    reduce=_local,
 ) -> tuple[torch.Tensor, torch.Tensor, EncodeStats]:
     """Beam-search encode ``x (N, D)`` (normalized space) on ``x``'s device.
 
     Returns ``(codes (M_ivf, N) int32, xhat (N, D) f32, EncodeStats)``.
     ``weights (N,)`` masks zero-padded rows out of the stats, which are
-    zeros unless ``want_stats``."""
+    zeros unless ``want_stats``; ``reduce`` makes them the statistics
+    over every data-parallel rank's rows (``_target_stats``)."""
     x = x.float()
     if spec.ivf_in_use:
         codes0, _ = chunked_argmin(x, params.codebook0, chunk=ivf_chunk, fast=spec.fast)
@@ -295,7 +310,7 @@ def encode(
     else:
         codes0, _ = sqdist_topk(x, params.codebook0, spec.beam0)  # (N, beam0)
     xhat = params.codebook0[codes0].float()  # (N, F0, D)
-    return encode_from_coarse(params, spec, x, codes0, xhat, weights, want_stats)
+    return encode_from_coarse(params, spec, x, codes0, xhat, weights, want_stats, reduce)
 
 
 @torch.no_grad()
@@ -307,6 +322,7 @@ def encode_from_coarse(
     xhat: torch.Tensor,  # (N, F0, D) step-0 reconstruction
     weights: Optional[torch.Tensor] = None,
     want_stats: bool = False,
+    reduce=_local,
 ) -> tuple[torch.Tensor, torch.Tensor, EncodeStats]:
     """The MLP beam-search phases given an externally computed step-0
     assignment, with the O(M·N) backtrace of the winning beam."""
@@ -321,7 +337,7 @@ def encode_from_coarse(
     for i in range(Ms):
         xhat, real, par, (m, s) = _beam_step(
             spec, params.step(i), x, xhat, F_out=spec.B,
-            n_codes=spec.n_codes_at(i), w=weights, want_stats=want_stats,
+            n_codes=spec.n_codes_at(i), w=weights, want_stats=want_stats, reduce=reduce,
         )
         reals.append(real)
         pars.append(par)
@@ -349,9 +365,18 @@ def encode_from_coarse(
 
 
 @torch.no_grad()
-def encode_raw(params: QincoParams, spec: QincoSpec, x: torch.Tensor, **kw) -> torch.Tensor:
-    """Encode raw-space vectors; returns codes only."""
+def encode_raw(params: QincoParams, spec: QincoSpec, x: torch.Tensor, *, mesh=None,
+               **kw) -> torch.Tensor:
+    """Encode raw-space vectors; returns codes only.  With a ``mesh`` whose
+    model axis is > 1 and an IVF model, ``params.codebook0`` is this
+    rank's shard of the IVF book and step 0 runs sharded
+    (``parallel/sharded_ops.py``)."""
     x_n = (x - params.data_mean) / params.data_std
+    if mesh is not None and spec.ivf_in_use and mesh.model_size > 1:
+        from ..parallel.sharded_ops import encode_ivf_sharded
+
+        codes, _, _ = encode_ivf_sharded(mesh, params, spec, x_n)
+        return codes
     codes, _, _ = encode(params, spec, x_n, **kw)
     return codes
 
@@ -368,12 +393,16 @@ def encode_chunked(
     *,
     batch: int | None = None,
     enc_max_bs: int = 65536,
+    mesh=None,
 ) -> np.ndarray:
     """Host-side loop: encode any-length raw-space ``x`` (array-like on
     the host) in fixed-shape chunks on the parameters' device,
     zero-padding the tail.  Chunks go up through pinned memory without
     blocking, and each chunk's codes come back while the next chunk is
-    queued.  Returns codes ``(M_ivf, N)`` int32."""
+    queued.  Returns codes ``(M_ivf, N)`` int32.  ``mesh`` routes step 0
+    through the sharded IVF book (see :func:`encode_raw`): every rank of
+    the model group must pass the same ``x``, so that all run the same
+    chunks in the same order."""
     device = params.codebook0.device
     pin = device.type == "cuda"
     n = len(x)
@@ -395,7 +424,7 @@ def encode_chunked(
         xc = torch.from_numpy(chunk)
         if pin:
             xc = xc.pin_memory()
-        codes = encode_raw(params, spec, xc.to(device, non_blocking=True))
+        codes = encode_raw(params, spec, xc.to(device, non_blocking=True), mesh=mesh)
         host = torch.empty(codes.shape, dtype=torch.int32, pin_memory=pin)
         host.copy_(codes, non_blocking=True)
         event = None

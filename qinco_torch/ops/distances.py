@@ -17,6 +17,11 @@ def sq_norm(x: torch.Tensor) -> torch.Tensor:
     return (x32 * x32).sum(-1)
 
 
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """‖a‖² + ‖b‖² − 2 a·bᵀ for ``a (..., d)`` and ``b (k, d)`` -> ``(..., k)``."""
+    return sq_norm(a)[..., None] + sq_norm(b) - 2.0 * (a.float() @ b.float().T)
+
+
 def pairwise_sqdist_partial(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """‖b‖² − 2 a·bᵀ for ``a (..., d)`` and ``b (k, d)`` -> ``(..., k)``:
     rank-equivalent to the full distance along the ``b`` axis."""

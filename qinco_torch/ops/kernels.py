@@ -1002,7 +1002,11 @@ def build() -> dict[str, str]:
     """Compile every kernel that has no up-to-date library yet, one
     ``nvcc`` per source, all started together.  Returns each kernel's
     ``ptxas`` report (registers, spills, shared memory); empty for a
-    library that was already built."""
+    library that was already built.  Ranks of a process group that build
+    at once each compile into a name of their own (the pid) and rename it
+    over the library, an atomic replace by the same bytes, as
+    ``search.index.build_native`` does (two ranks building that one at once
+    are checked in ``tests/test_torch_parallel.py``)."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (src, _, _) in _KERNELS.items():

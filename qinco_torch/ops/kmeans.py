@@ -13,6 +13,12 @@ blocks.
   ``init_centroids`` is given;
 - an empty cluster is refilled with such a draw;
 - 10 Lloyd iterations by default.
+
+With a ``mesh`` that has a process group the rows split contiguously over
+its data axis; each iteration all-reduces the sums and the counts once
+(one f32 and one int64 collective) before the refill and the division.
+The init and the refills draw from one seeded generator on every rank, so
+every rank ends with the same centroids.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import TRIVIAL, all_reduce_sum
 from ..utils import resolve_device
 from .distances import chunked_argmin
 from .segment import segment_sum
@@ -56,16 +63,19 @@ def kmeans(
     init_centroids: np.ndarray | None = None,
     verbose: bool = False,
     device=None,
+    mesh=None,
 ) -> np.ndarray:
-    """Train K centroids on ``x (N, D)`` on ``device`` (default ``cuda``);
-    returns (K, D) float32 on the host.  The draws come from a
-    ``torch.Generator`` on the device seeded with ``seed``."""
+    """Train K centroids on ``x (N, D)`` (array-like, a memmap say) on
+    ``device`` (default ``cuda``); returns (K, D) float32 on the host.  The
+    draws come from a ``torch.Generator`` on the device seeded with
+    ``seed``.  With ``mesh`` (see the module docstring) every rank passes
+    all of ``x`` and reads its data shard's rows of it."""
     device = resolve_device(device)
-    x = np.asarray(x, np.float32)
     N, D = x.shape
     g = torch.Generator(device=device).manual_seed(seed)
+    mesh = mesh or TRIVIAL
 
-    stats = x[: min(N, 200_000)]
+    stats = np.asarray(x[: min(N, 200_000)], np.float32)
     mean = torch.as_tensor(stats.mean(0), device=device)
     std = torch.as_tensor(stats.std(0), device=device)
     if init_centroids is not None:
@@ -73,10 +83,15 @@ def kmeans(
     else:
         centroids = torch.rand((K, D), generator=g, device=device) * std + mean
 
+    per = N // mesh.data_size  # this data shard's rows; the last shard takes the rest
+    lo = per * mesh.data_rank
+    x = np.asarray(x[lo:N if mesh.data_rank == mesh.data_size - 1 else lo + per], np.float32)
+    if not x.flags.writeable:  # a read-only memmap: a copy in memory
+        x = x.copy()
     chunk = min(chunk, K)
     rows = int(max(256, min(batch, DIST_BUDGET_ELEMS // chunk)))
-    bounds = [(lo, min(N, lo + batch)) for lo in range(0, N, batch)]
-    resident = N * D * 4 <= RESIDENT_BYTES
+    bounds = [(lo, min(len(x), lo + batch)) for lo in range(0, len(x), batch)]
+    resident = len(x) * D * 4 <= RESIDENT_BYTES
     blocks = [torch.as_tensor(x[lo:hi], device=device) for lo, hi in bounds] if resident else None
 
     for it in range(iters):
@@ -85,10 +100,11 @@ def kmeans(
         for i, (lo, hi) in enumerate(bounds):
             xb = blocks[i] if resident else torch.as_tensor(x[lo:hi], device=device)
             accumulate_pass(xb, centroids, sums, counts, chunk=chunk, rows=rows)
+        sums, counts = all_reduce_sum(mesh, [sums, counts])
         refill = torch.rand((K, D), generator=g, device=device) * std + mean
         empty = counts < 0.5
         sums = sums + refill * empty[:, None]
         centroids = sums / torch.clamp(counts, min=1.0)[:, None]
-        if verbose:
+        if verbose and mesh.is_main:
             print(f"kmeans iter {it + 1}/{iters}")
     return centroids.cpu().numpy()

@@ -1,7 +1,11 @@
 """Task lifecycle: setup -> load_data -> load_model -> run, and the task
 registry (counterpart of ``qinco_tpu/tasks/base.py``).
 
-A task runs on the CUDA device, or on the CPU with ``cpu=true``."""
+A task runs on the CUDA device, or on the CPU with ``cpu=true``.  Under a
+process group (``qinco_torch/parallel``) each rank runs it on its own card
+(``cuda:<local rank>``) over the ``(mesh.data, mesh.model)`` mesh; only
+the main rank prints and saves.  The tasks with ``DISTRIBUTED = False``
+run in one process only."""
 
 from __future__ import annotations
 
@@ -14,11 +18,13 @@ from ..checkpoint import SAVED_PARAMETERS, load_checkpoint, load_checkpoint_meta
 from ..config import Config, apply_dataset_preset
 from ..models.params import init_model_state, init_params, set_codebooks_from_rq
 from ..models.spec import spec_from_cfg
+from ..parallel.mesh import make_mesh
 from ..utils import format_memory, resolve_device
 
 
 class BaseTask:
     USE_MODEL = True
+    DISTRIBUTED = False  # True: the task runs over several ranks
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -30,7 +36,18 @@ class BaseTask:
     # -- lifecycle ----------------------------------------------------------
     def setup(self) -> None:
         cfg = self.cfg
-        self.device = torch.device("cpu") if cfg.cpu else resolve_device()
+        self.mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+        self.process_index, self.process_count = self.mesh.rank, self.mesh.world
+        self.is_main = self.mesh.is_main
+        if self.process_count > 1 and not self.DISTRIBUTED:
+            raise ValueError(f"task={cfg.task} runs in one process; start it without a "
+                             f"process group ({self.process_count} ranks)")
+        if cfg.cpu:
+            self.device = torch.device("cpu")
+        elif self.mesh.grouped:  # the card that the group start-up made current
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = resolve_device()
         np.random.seed(cfg.seed)
         apply_dataset_preset(cfg)
 
@@ -69,13 +86,21 @@ class BaseTask:
 
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.print(f"Device: {self.device} ({name})")
-        if self.device.type == "cuda":
+        if self.mesh.grouped:
+            m = self.mesh
+            self.print(f"Process group: {m.world} rank(s), mesh data={m.data_size} x "
+                       f"model={m.model_size}")
+        self.log_device_memory()
+
+    def log_device_memory(self) -> None:
+        if self.is_main and self.device.type == "cuda":
             free, total = torch.cuda.mem_get_info(self.device)
             self.print(f"Device memory: {format_memory(total - free)} / "
                        f"{format_memory(total)} in use")
 
     def print(self, *args) -> None:
-        print(*args, flush=True)
+        if getattr(self, "is_main", True):
+            print(*args, flush=True)
 
     def load_data(self) -> None:
         pass
@@ -122,6 +147,8 @@ class BaseTask:
 
     def save(self, *, epoch=None, opt_state=None, scheduler_state=None,
              logger_state=None) -> None:
+        if not self.is_main:
+            return
         save_checkpoint(
             self.cfg.output, params=self.params, model_state=self.mstate, opt_state=opt_state,
             epoch=epoch, scheduler_state=scheduler_state, logger_state=logger_state,

@@ -2,7 +2,9 @@
 (``eval_time``) (counterpart of ``qinco_tpu/tasks/eval_task.py``).
 ``eval_time`` reports μs per vector after a warm-up, with device syncs
 around each encode and decode; with ``profile_dir`` it also writes a
-``torch.profiler`` trace there."""
+``torch.profiler`` trace there.  Over a process group each data group
+evaluates its shard of the database, the MSE is the global one, and each
+rank writes its own trace (``trace_rank<r>.json``)."""
 
 from __future__ import annotations
 
@@ -14,10 +16,13 @@ from .base import BaseTask
 
 
 class EvalTask(BaseTask):
+    DISTRIBUTED = True
+
     def load_data(self):
         cfg = self.cfg
         self.print(f"Loading database from {cfg.db}")
-        self.test_vecs, self.test_loader = load_vec_db(cfg)
+        self.test_vecs, self.test_loader = load_vec_db(
+            cfg, shard=(self.mesh.data_rank, self.mesh.data_size))
         self.print(f"Test set: {self.test_vecs.shape}")
         self.data_dim = self.test_vecs.shape[-1]
 
@@ -28,7 +33,7 @@ class EvalTask(BaseTask):
 
         def _run():
             return compute_mse(self.params, self.spec, self.test_loader,
-                               mse_scale=cfg.mse_scale, timing=timing)
+                               mse_scale=cfg.mse_scale, timing=timing, mesh=self.mesh)
 
         if timing and profile_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -39,7 +44,8 @@ class EvalTask(BaseTask):
             with profile(activities=activities) as prof:
                 mse = _run()
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+            name = f"trace_rank{self.mesh.rank}.json" if self.mesh.grouped else "trace.json"
+            prof.export_chrome_trace(str(Path(profile_dir) / name))
             self.print(f"Wrote profiler trace to {profile_dir}")
         else:
             mse = _run()

@@ -1,8 +1,9 @@
 """Search-pipeline tasks (counterpart of ``qinco_tpu/tasks/search_tasks.py``):
 IVF centroid training, DB encoding into part files, the index build,
-the pairwise decoder's training and the search.  One process encodes
-the whole database as one part; encoding with the IVF book sharded over
-several cards (``mesh.model > 1``) is not ported yet (ROADMAP A11)."""
+the pairwise decoder's training and the search.  Over a process group the
+k-means splits its rows over the data axis, and the DB encode writes one
+part file per data group, with the IVF book sharded over each model group
+when ``mesh.model > 1``."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import numpy as np
 from ..data.datasets import load_queries_data, load_vec_db, load_vec_trainset
 from ..models.qinco import encode_chunked
 from ..ops.kmeans import kmeans
+from ..parallel.mesh import barrier
+from ..parallel.sharded_ops import shard_codebook
 from ..utils import TimersManager
 from .base import BaseTask
 
@@ -18,9 +21,10 @@ from .base import BaseTask
 class IVFTrainTask(BaseTask):
     """k-means of the training set into ``ivf_K`` centroids
     (``kmeans_iters`` Lloyd iterations, on the task's device), saved as
-    ``.npy``."""
+    ``.npy`` (by rank 0; every rank ends with the same centroids)."""
 
     USE_MODEL = False
+    DISTRIBUTED = True
 
     def setup(self):
         super().setup()
@@ -36,12 +40,13 @@ class IVFTrainTask(BaseTask):
 
     def run(self):
         cfg = self.cfg
-        # a writable copy in memory: the rows may be a read-only memmap
-        centroids = kmeans(np.array(self.train_vecs, np.float32), int(cfg.ivf_K),
+        centroids = kmeans(self.train_vecs, int(cfg.ivf_K),
                            iters=int(cfg.get("kmeans_iters", 100) or 100), seed=cfg.seed,
-                           verbose=cfg.verbose, device=self.device)
+                           verbose=cfg.verbose, device=self.device, mesh=self.mesh)
         self.print(f"Storing IVF centroids to {cfg.output}")
-        np.save(cfg.output, centroids)
+        if self.is_main:
+            np.save(cfg.output, centroids)
+        barrier(self.mesh)
         return centroids
 
 
@@ -50,7 +55,17 @@ class EncodeDBTask(BaseTask):
     ``encode_trainset=true``) through ``encode_chunked`` at ``batch``
     vectors a chunk, and write the part-file contract of the JAX package:
     a header npz ``{n_parts, K, M, D}`` at ``output`` and
-    ``<base>.part_0.npz`` holding ``codes (n, M_ivf)``."""
+    ``<base>.part_{g}.npz`` holding ``codes (n, M_ivf)``.
+
+    Over a process group, data group ``g`` of ``G`` encodes the rows
+    ``[(n//G)·g, (n//G)·(g+1))`` (the last group takes the rest) and its
+    model rank 0 writes part ``g``; rank 0 writes the header with
+    ``n_parts = G``.  With ``mesh.model > 1`` and an IVF model, the ranks
+    of a model group split the IVF book and encode their group's rows
+    together (without IVF each encodes them whole).  The task returns when
+    every part and the header exist."""
+
+    DISTRIBUTED = True
 
     def setup(self):
         super().setup()
@@ -70,23 +85,31 @@ class EncodeDBTask(BaseTask):
         self.data_dim = self.db_vecs.shape[-1]
 
     def run(self):
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         output_base = str(cfg.output)[:-4]
-        if cfg.mesh.model > 1 and self.spec.ivf_in_use:
-            raise NotImplementedError(
-                "encoding with the IVF book sharded over mesh.model > 1 cards is not ported "
-                "(ROADMAP A11)")
+        n_parts, part = mesh.data_size, mesh.data_rank
+        n = len(self.db_vecs)
+        start = (n // n_parts) * part
+        end = (n // n_parts) * (part + 1) if part < n_parts - 1 else n
+        params, sharded = self.params, mesh.model_size > 1 and self.spec.ivf_in_use
+        if sharded:
+            self.print(f"Sharding the IVF codebook over {mesh.model_size} ranks")
+            params = params._replace(codebook0=shard_codebook(mesh, params.codebook0))
         timers = TimersManager("encode", "saving")
-        self.print(f"Encoding {len(self.db_vecs)} vectors using 1 process(es)")
+        self.print(f"Encoding {n} vectors using {n_parts} data group(s)")
         with timers.encode:
             # the reference stores the codes transposed, (n, M_ivf)
-            codes = encode_chunked(self.params, self.spec, self.db_vecs, batch=cfg.batch,
-                                   enc_max_bs=cfg.enc_max_bs).T
-        self.print(f"Encoding done in {timers.encode}")
+            codes = encode_chunked(params, self.spec, self.db_vecs[start:end], batch=cfg.batch,
+                                   enc_max_bs=cfg.enc_max_bs, mesh=mesh if sharded else None).T
+        self.print(f"Encoding done in {timers.encode} ({timers.encode.s()})")
         with timers.saving:
-            np.savez_compressed(cfg.output, n_parts=1, K=cfg.K, M=cfg.M, D=self.spec.D)
-            np.savez_compressed(f"{output_base}.part_0.npz", codes=codes)
-        self.print(f"Stored codes into {cfg.output} and 1 part file(s) "
+            if self.is_main:
+                np.savez_compressed(cfg.output, n_parts=n_parts, K=cfg.K, M=cfg.M,
+                                    D=self.spec.D)
+            if mesh.model_rank == 0:
+                np.savez_compressed(f"{output_base}.part_{part}.npz", codes=codes)
+            barrier(mesh)
+        self.print(f"Stored codes into {cfg.output} and {n_parts} part file(s) "
                    f"[done in {timers.saving}]")
         return codes
 

@@ -6,7 +6,15 @@ Per epoch: the usage histograms reset, one optimizer step per group of
 the fractional epoch, the validation MSE, the best checkpoint, then the
 dead-codeword reset.  Losses are summed on the device and read on the host
 only every ``log_every`` batches, so the card does not wait on the host
-between steps."""
+between steps.
+
+Data-parallel over a process group: each data group reads its shard of
+the rows (``batch`` rows a step each, a global batch of ``batch x
+data_size``); the parameters and model state are broadcast from rank 0
+after loading; the step and the validation MSE sum over the data axis, so
+every rank holds the same parameters and takes the same decisions (the
+plateau schedule, the best checkpoint, the early stop).  Only rank 0
+prints and saves."""
 
 from __future__ import annotations
 
@@ -16,8 +24,10 @@ import torch
 from ..data.datasets import Batch, load_vec_trainset
 from ..logsys import MetricLogger
 from ..metrics import corrected_mse
+from ..models.params import param_leaves
 from ..models.scheduler import ReduceLROnPlateau, build_schedule
 from ..ops.rq import train_rq
+from ..parallel.mesh import replicate
 from ..train.loop import compute_mse
 from ..train.train_step import (
     build_optimizer,
@@ -49,6 +59,8 @@ def _grouped_batches(it, accum: int):
 
 
 class TrainTask(BaseTask):
+    DISTRIBUTED = True
+
     def setup(self):
         super().setup()
         cfg = self.cfg
@@ -64,7 +76,7 @@ class TrainTask(BaseTask):
         cfg = self.cfg
         self.print(f"Loading training data from {cfg.trainset}")
         (self.train_vecs, self.val_vecs), (self.train_loader, self.val_loader) = (
-            load_vec_trainset(cfg))
+            load_vec_trainset(cfg, shard=(self.mesh.data_rank, self.mesh.data_size)))
         self.print(f"Training set: {self.train_vecs.shape}")
         self.print(f"Validation set: {self.val_vecs.shape}")
         self.data_dim = self.train_vecs.shape[-1]
@@ -115,16 +127,18 @@ class TrainTask(BaseTask):
         return params, n_reset.cpu().numpy()
 
     def run(self):
-        cfg, spec, device = self.cfg, self.spec, self.device
+        cfg, spec, device, mesh = self.cfg, self.spec, self.device, self.mesh
         eval_only = cfg.task != "train"
+        # rank 0's parameters and model state (fresh, or restored) everywhere
+        replicate(mesh, param_leaves(self.params) + list(self.mstate))
 
         schedule = build_schedule(cfg)
         opt = build_optimizer(cfg, self.params, spec)
         accum = max(1, int(cfg.get("grad_accumulate", 1) or 1))
-        train_step = make_train_step(spec, opt, cfg.grad_clip, accum=accum)
+        train_step = make_train_step(spec, opt, cfg.grad_clip, accum=accum, mesh=mesh)
 
         start_epoch = 0
-        melog = MetricLogger(cfg, save_fn=None)
+        melog = MetricLogger(cfg, is_main=self.is_main, save_fn=None)
         if self.restored is not None and self.ckpt_meta is not None and not eval_only:
             meta = self.restored["meta"]
             if self.restored["opt_state"] is not None:
@@ -155,7 +169,8 @@ class TrainTask(BaseTask):
 
         melog.save_fn = save_best
 
-        mse_val = compute_mse(params, spec, self.val_loader, melog, mse_scale=cfg.mse_scale)
+        mse_val = compute_mse(params, spec, self.val_loader, melog, mse_scale=cfg.mse_scale,
+                              mesh=mesh)
         self.print(f"Validation metrics: [[MSE={mse_val:g}]]")
         if eval_only:
             melog.close()
@@ -185,7 +200,7 @@ class TrainTask(BaseTask):
                     x_np, w = x_np[0], w[0]
                 params, mstate, out = train_step(params, mstate, host_to_device(x_np, device),
                                                  host_to_device(w, device))
-                nv = int(w.sum())
+                nv = int(w.sum()) * mesh.data_size  # equal shards: the global count
                 n_seen += nv
                 sum_total = out.total_loss * nv if sum_total is None else (
                     sum_total + out.total_loss * nv)
@@ -199,7 +214,7 @@ class TrainTask(BaseTask):
             melog.end_train_phase()
 
             mse_val = compute_mse(params, spec, self.val_loader, melog,
-                                  mse_scale=cfg.mse_scale)
+                                  mse_scale=cfg.mse_scale, mesh=mesh)
             usage_rows = [mstate.usage0.cpu().numpy(), *mstate.usage.cpu().numpy()]
             melog.end_epoch(
                 mse_val, usage_rows=usage_rows,

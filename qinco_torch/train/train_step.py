@@ -13,10 +13,22 @@ the optimizer holds the very tensors of the :class:`QincoParams`.
 Frozen leaves (the data mean and std, and with IVF the step-0 book) do
 not require grad and are in no parameter group, so they get neither an
 update nor weight decay.
+
+Data-parallel (``mesh`` with a process group): each rank feeds its own
+rows.  The encode's residual statistics (each MLP step's) and the ``x0``
+statistics are taken over the global batch in two passes (sums and
+counts, then squared deviations), two all-reduces each.  The step sums
+``grads·n``, ``total·n``, ``losses·n`` and the counts (one f32
+all-reduce) and the usage increments (one int64 all-reduce) over the data
+axis once, before the division and the clip.  So a step makes ``(2·Ms +
+2)·accum + 2`` collectives (``Ms`` MLP steps), and every rank applies the
+same update to the same parameters, EMA buffers and usage histograms.
+Without a group every reduction is the identity.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -25,6 +37,7 @@ import torch
 from ..models.params import ModelState, QincoParams, param_leaves, trainable_leaves
 from ..models.qinco import encode, train_losses
 from ..models.spec import QincoSpec
+from ..parallel.mesh import all_reduce_sum
 
 STATS_MOMENTUM = 0.1
 
@@ -62,75 +75,93 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _micro_batch_pass(spec: QincoSpec, params, leaves, mstate: ModelState, x, weights):
-    """Gradients and losses of one micro-batch, each times its valid-row
-    count, and the EMA and usage updates.  Returns ``(grads·n, (total·n,
-    losses·n), n, codes, mstate)``."""
-    codes, _, stats = encode(params, spec, x, weights=weights, want_stats=True)
+def _micro_batch_pass(spec: QincoSpec, params, leaves, mstate: ModelState, x, weights,
+                      reduce):
+    """Gradients and losses of one micro-batch, each times its (local)
+    valid-row count, the EMA update, and the usage increments.  Returns
+    ``(grads·n, (total·n, losses·n), n, codes, mstate, (usage0_inc,
+    usage_inc))``.  ``reduce`` sums a list of tensors over the
+    data-parallel ranks (the identity in one process)."""
+    codes, _, stats = encode(params, spec, x, weights=weights, want_stats=True, reduce=reduce)
     total, aux = train_losses(params, spec, x, codes, weights)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     with torch.no_grad():
         nv = weights.sum()
+        nv_all, x_sum = reduce([nv.clone(), (x * weights[:, None]).sum(0)])
         # a fully padded micro-batch (the accumulation tail) moves no EMA
-        m = STATS_MOMENTUM * (nv > 0).float()
-        n_valid = torch.clamp(nv, min=1.0)
-        x_mean = (x * weights[:, None]).sum(0) / n_valid
-        x_var = ((x - x_mean) ** 2 * weights[:, None]).sum(0) / torch.clamp(n_valid - 1.0,
-                                                                            min=1.0)
+        m = STATS_MOMENTUM * (nv_all > 0).float()
+        n_valid = torch.clamp(nv_all, min=1.0)
+        x_mean = x_sum / n_valid
+        (x_sq,) = reduce([((x - x_mean) ** 2 * weights[:, None]).sum(0)])
+        x_var = x_sq / torch.clamp(n_valid - 1.0, min=1.0)
         w_int = weights.long()
         Ms = spec.n_mlp_steps
-        mstate = ModelState(
+        mstate = mstate._replace(
             xtarget_mean=m * stats.xtarget_mean + (1 - m) * mstate.xtarget_mean,
             xtarget_var=m * stats.xtarget_std + (1 - m) * mstate.xtarget_var,
             x0_mean=m * x_mean + (1 - m) * mstate.x0_mean,
             x0_std=m * torch.sqrt(x_var) + (1 - m) * mstate.x0_std,
-            usage0=mstate.usage0.long().index_add_(0, codes[0].long(), w_int).int(),
-            usage=mstate.usage.long().scatter_add_(
-                1, codes[1:].long(), w_int.expand(Ms, -1).contiguous()).int(),
         )
+        usage = (torch.zeros(mstate.usage0.shape, dtype=torch.int64, device=x.device)
+                 .index_add_(0, codes[0].long(), w_int),
+                 torch.zeros(mstate.usage.shape, dtype=torch.int64, device=x.device)
+                 .scatter_add_(1, codes[1:].long(), w_int.expand(Ms, -1).contiguous()))
         grads = [torch.zeros_like(a) if g is None else g * nv for g, a in zip(grads, leaves)]
         losses = {k: v.detach() * nv for k, v in aux.items() if k != "xhat"}
-    return grads, (total.detach() * nv, losses), nv, codes, mstate
+    return grads, (total.detach() * nv, losses), nv, codes, mstate, usage
 
 
 def make_train_step(spec: QincoSpec, opt: torch.optim.Optimizer, grad_clip: float | None,
-                    accum: int = 1):
+                    accum: int = 1, mesh=None):
     """The train step ``(params, mstate, batch, weights) -> (params, mstate,
     TrainStepOutput)`` on the parameters that ``opt`` holds.
 
     ``accum == 1``: ``batch (N, D)`` raw-space rows, ``weights (N,)`` the
     padding mask.  ``accum > 1``: stacked micro-batches ``(accum, N, D)``
     and ``(accum, N)``.  Nothing in the step reads a value back to the
-    host."""
+    host.  With a ``mesh`` that has a process group, ``batch`` is this
+    rank's share of the global batch and the step is the step on the
+    global batch (see the module docstring); ``codes`` are this rank's."""
     leaves = [a for group in opt.param_groups for a in group["params"]]
+    reduce = partial(all_reduce_sum, mesh, axis="data")  # the identity without a group
 
     def train_step(params: QincoParams, mstate: ModelState, batch, weights):
         x_all = (batch - params.data_mean.detach()) / params.data_std.detach()
         if accum == 1:
-            grads, (total, losses), nv, codes, mstate = _micro_batch_pass(
-                spec, params, leaves, mstate, x_all, weights)
-            n_total = torch.clamp(nv, min=1.0)
+            grads, (total, losses), nv, codes, mstate, usage = _micro_batch_pass(
+                spec, params, leaves, mstate, x_all, weights, reduce)
+            n_sum = nv
         else:
             if batch.dim() != 3 or batch.shape[0] != accum:
                 raise ValueError(f"accum={accum} expects stacked (accum, N, D) batches, "
                                  f"got {tuple(batch.shape)}")
-            grads = total = losses = None
+            grads = total = losses = usage = None
             nvs, all_codes = [], []
             for j in range(accum):
-                g, (t, ls), nv, codes, mstate = _micro_batch_pass(
-                    spec, params, leaves, mstate, x_all[j], weights[j])
+                g, (t, ls), nv, codes, mstate, u = _micro_batch_pass(
+                    spec, params, leaves, mstate, x_all[j], weights[j], reduce)
                 if grads is None:
-                    grads, total, losses = g, t, ls
+                    grads, total, losses, usage = g, t, ls, u
                 else:
                     grads = [a + b for a, b in zip(grads, g)]
                     total = total + t
                     losses = {k: losses[k] + v for k, v in ls.items()}
+                    usage = tuple(a + b for a, b in zip(usage, u))
                 nvs.append(nv)
                 all_codes.append(codes)
-            n_total = torch.clamp(torch.stack(nvs).sum(), min=1.0)
+            n_sum = torch.stack(nvs).sum()
             codes = torch.cat(all_codes, dim=1)  # (M_ivf, accum·N)
 
         with torch.no_grad():
+            keys = sorted(losses)  # one f32 and one int64 all-reduce
+            out = reduce([*grads, total, *(losses[k] for k in keys), n_sum, *usage])
+            n = len(grads)
+            grads, total, n_sum = out[:n], out[n], out[n + 1 + len(keys)]
+            losses = dict(zip(keys, out[n + 1:n + 1 + len(keys)]))
+            usage = out[-2:]
+            n_total = torch.clamp(n_sum, min=1.0)
+            mstate = mstate._replace(usage0=(mstate.usage0.long() + usage[0]).int(),
+                                     usage=(mstate.usage.long() + usage[1]).int())
             for a, g in zip(leaves, grads):
                 g = g / n_total
                 a.grad = g.clamp_(-grad_clip, grad_clip) if grad_clip else g

@@ -557,3 +557,93 @@ def test_converted_checkpoint_encodes_as_its_source_on_the_card(cuda, tmp_path):
     x = synthetic_data(spec, params, 8192, 2, NOISE)
     np.testing.assert_array_equal(encode_chunked(back, spec, x, batch=1024),
                                   encode_chunked(params, spec, x, batch=1024))
+
+
+# ---------------------------------------------------------------------------
+# A one-rank NCCL process group (qinco_torch/parallel), in a subprocess
+# ---------------------------------------------------------------------------
+
+_ONE_RANK = r"""
+import json, sys
+import torch
+from qinco_torch.config import load_config
+from qinco_torch.models.params import (QincoParams, StepParams, init_model_state, init_params,
+                                       param_leaves)
+from qinco_torch.models.spec import QincoSpec
+from qinco_torch.ops.distances import sqdist_topk
+from qinco_torch.parallel import distributed, mesh as pmesh
+from qinco_torch.parallel.sharded_ops import shard_codebook, sharded_coarse_topk
+from qinco_torch.train import train_step as tts
+
+torch.backends.cuda.matmul.allow_tf32 = False
+assert distributed.maybe_init_distributed(cpu=False)
+mesh = pmesh.make_mesh()
+dev = torch.device("cuda", torch.cuda.current_device())
+spec = QincoSpec(D=128, K=256, M=4, L=2, de=128, dh=256, A=16, B=32, pallas=True, fast=True,
+                 fused_select=True, compute_dtype="bfloat16")
+g = torch.Generator(device=dev).manual_seed(0)
+p = init_params(spec, g, device=dev)
+p = p._replace(steps=StepParams(*(a if a is None or a.any() else
+                                  0.05 * torch.randn(a.shape, generator=g, device=dev)
+                                  for a in p.steps)))
+x = torch.randn((512, spec.D), generator=g, device=dev)
+w = torch.ones(512, device=dev)
+runs = []
+for m in (None, mesh):
+    q = QincoParams(*(StepParams(*(None if a is None else a.clone() for a in t))
+                      if isinstance(t, StepParams) else t.clone() for t in p))
+    step = tts.make_train_step(spec, tts.build_optimizer(load_config({"lr": 1e-3}), q, spec),
+                               0.1, mesh=m)
+    mstate = init_model_state(spec, device=dev)
+    losses = []
+    for _ in range(2):
+        q, mstate, out = step(q, mstate, x, w)
+        losses.append(out.total_loss.clone())
+    runs.append(param_leaves(q) + list(mstate) + losses)
+book = torch.randn((1 << 16, 128), generator=g, device=dev)
+xq = book[:512] + 0.5 * torch.randn((512, 128), generator=g, device=dev)
+ids, _ = sharded_coarse_topk(mesh, xq, shard_codebook(mesh, book), 64, exact=False)
+json.dump(dict(world=mesh.world, grouped=mesh.grouped,
+               step_equal=all(torch.equal(a, b) for a, b in zip(*runs)),
+               topk_equal=torch.equal(ids, sqdist_topk(xq, book, 64)[0])), open(sys.argv[1], "w"))
+distributed.shutdown()
+"""
+
+
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """The script above as rank 0 of a world of one (torchrun's variables)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = tmp_path_factory.mktemp("one_rank") / "out.json"
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    subprocess.run([sys.executable, "-c", _ONE_RANK, str(out)], env=env, check=True,
+                   cwd=Path(__file__).resolve().parent.parent, timeout=600)
+    return json.loads(out.read_text())
+
+
+@pytest.mark.cuda
+def test_parity_train_steps_in_a_one_rank_nccl_group_equal_the_plain_steps(one_rank_group):
+    """Two parity train steps at the qinco2-S widths (M=4) with the mesh of
+    a one-rank NCCL group (its all-reduces the identity) and without one:
+    parameters, model state and losses equal bit for bit."""
+    assert one_rank_group["world"] == 1 and one_rank_group["grouped"]
+    assert one_rank_group["step_equal"]
+
+
+@pytest.mark.cuda
+def test_sharded_coarse_topk_in_a_one_rank_group_equals_sqdist_topk(one_rank_group):
+    """The sharded top-64 over a 2^16-row book (shard, gather and merge on
+    the card) gives the plain top-k's ids."""
+    assert one_rank_group["topk_equal"]

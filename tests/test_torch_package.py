@@ -45,6 +45,9 @@ def test_imports_with_jax_and_qinco_tpu_absent():
         "import qinco_torch.codec, qinco_torch.ops.opq, qinco_torch.models.pq_qinco\n"
         "import qinco_torch.search.two_stage, qinco_torch.tasks.convert_task\n"
         "import qinco_torch.tasks.codec_task, qinco_torch.tasks.pq_task\n"
+        "import qinco_torch.parallel, qinco_torch.parallel.mesh\n"
+        "import qinco_torch.parallel.distributed, qinco_torch.parallel.sharded_ops\n"
+        "assert qinco_torch.parallel.make_mesh().world == 1\n"
         "from qinco_torch.data import load_queries_data\n"
         "from qinco_torch.metrics import compute_recalls\n"
         "from qinco_torch.tasks import get_task\n"

@@ -230,13 +230,6 @@ def test_kmeans_over_chunks_matches_jax_from_the_same_init():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_sharded_ivf_encode_is_not_ported(pipe, monkeypatch):
-    tmp = pipe["tmp"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        port(["task=encode", f"db={tmp}/db.npy", f"model={tmp}/model.npz", pipe["ivf"],
-              f"output={tmp}/sharded.npz", "mesh.model=2"])
-
-
 @pytest.mark.parametrize("name", ["ivf_centroids", "encode", "build_index",
                                   "train_pairwise_decoder", "search"])
 def test_search_tasks_are_registered(name):
