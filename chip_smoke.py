@@ -18,15 +18,21 @@
      external vals (the f32 folded table of ``pallas=true``, the bf16
      lean table of ``fused_topa=false``); select-rebuild;
    - fused-substep scores (speed profile; also its f32 route);
-   - candidate scores at K=1024 (unpacked; also at the qinco2-M widths and
-     its f32 route) and at K=256 with a low-rank concat factor (packed),
-     and select-rebuild with that factor.
+   - candidate scores at K=1024 (unpacked; also at the qinco2-M widths) and
+     at K=256 with a low-rank concat factor (packed), and select-rebuild
+     with that factor;
+   - the f32 routes of selected scores (external vals at the qinco2-S and
+     -M widths, the in-kernel top-A at qinco2-S with select-rebuild at f32
+     on its output) and of candidate scores (K=1024 at the qinco2-S and -M
+     widths, the low-rank factor at qinco2-S), whose ``design`` names the
+     register-tiled f32 stage.
 4. Path phase at qinco2-S, random weights and data from ``--seed`` (the
    data: decodes of random codes plus noise of std ``NOISE``, or
    ``SPEED_NOISE`` for the speed profile), through ``encode_chunked``
    (batch 1024) over ``--n`` vectors, then ``decode``: the parity and the
    speed profile without and with the IVF step 0 (ivf_K = 2^20),
-   ``pallas=true`` (f32) and the parity profile at K=1024.  Each checks
+   ``pallas=true`` (f32) at K=256 and at K=1024, and the parity profile at
+   K=1024.  Each checks
    the kernels' launch counts exactly (one launch of its scoring kernel
    and, with packed ids, of select-rebuild per MLP step and chunk, none of
    the others), encode xhat against decode(codes), and its MSE and codes
@@ -283,10 +289,20 @@ def batch_ms(fn, calls: int = 10, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def design(dtype: str) -> str:
+# The kernels whose f32 route is the register-tiled stage of csrc/f32_tile.cuh.
+F32_TILED = ("selected_scores", "candidate_scores")
+
+
+def design(name: str, dtype: str) -> str:
     """How a kernel computes its MLP products: every kernel runs them on
-    the tensor cores under bf16, and in f32 on the CUDA cores under f32."""
-    return "tensor cores (mma.sync)" if dtype == "bfloat16" else "cuda cores f32"
+    the tensor cores under bf16, and in f32 on the CUDA cores under f32:
+    B2' and B5 through the shared-memory weight ring and register tiles,
+    B3 and B4 in their first versions."""
+    if dtype == "bfloat16":
+        return "tensor cores (mma.sync)"
+    if name in F32_TILED:
+        return "cuda cores f32 (bulk-copy weight ring, register-tiled FFMA)"
+    return "cuda cores f32 (first version)"
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -453,7 +469,7 @@ def kernel_check(name, label, spec, run, plain, compare, work, **info) -> dict:
     flops, nbytes = work
     b_ms, b_by = bound_ms(flops, nbytes, spec.compute_dtype)
     ms = time_ms(run)
-    res = dict(name=name, shape=label, **info, design=design(spec.compute_dtype),
+    res = dict(name=name, shape=label, **info, design=design(name, spec.compute_dtype),
                max_abs_err=err, ms=ms, ms_batch=batch_ms(run), plain_ms=time_ms(plain, reps=5),
                bound_ms=b_ms, bound_by=b_by, library_ms=None, gflop=flops / 1e9,
                tflops=flops / ms / 1e9, mbytes=nbytes / 1e6)
@@ -1608,12 +1624,26 @@ def main() -> None:
                     N, s.B, s.A, seed, device)
     check_candidate("qinco2-M widths K=1024", spec_of("qinco2-M", "K=1024"), N, m.B, m.A, seed,
                     device)
-    # the f32 routes of B4 and B5: their CUDA-core kernels
+    # the f32 routes: B4's CUDA-core kernel; B2' and B5 on the register-tiled
+    # stage at the qinco2-S and -M widths, B5 with a low-rank factor, B2'
+    # with the in-kernel top-A (and B3 at f32 on its output)
     check_fused("qinco2-S speed f32", speed_s.with_(compute_dtype="float32"), N, s.B, s.A, seed,
                 device)
     check_candidate("qinco2-S widths K=1024 f32",
                     spec_of("qinco2-S", "K=1024").with_(compute_dtype="float32"), N, s.B, s.A,
                     seed, device)
+    check_candidate("qinco2-M widths K=1024 f32",
+                    spec_of("qinco2-M", "K=1024").with_(compute_dtype="float32"), N, m.B, m.A,
+                    seed, device)
+    check_candidate(f"qinco2-S concat_rank={CONCAT_RANK} f32",
+                    s.with_(concat_rank=CONCAT_RANK, compute_dtype="float32"), N, s.B, s.A, seed,
+                    device)
+    check_selected("qinco2-M pallas=true (f32, folded table)",
+                   spec_of("qinco2-M", "pallas=true", profile=None), N, m.B, m.A, seed, device,
+                   external=True)
+    check_selected("qinco2-S fast_encode=true pallas=true (f32, in-kernel top-A)",
+                   spec_of("qinco2-S", "pallas=true", "fast_encode=true", profile=None), N, s.B,
+                   s.A, seed, device)
 
     # (label, spec, scoring kernel, data noise, MSE bound and least code
     # agreement vs exact)
@@ -1628,6 +1658,8 @@ def main() -> None:
          "selected_scores", NOISE, 1.01, 0.95),
         ("qinco2-S K=1024", spec_of("qinco2-S", "K=1024"), "candidate_scores", NOISE, 1.01,
          0.9),
+        ("qinco2-S pallas=true K=1024", spec_of("qinco2-S", "pallas=true", "K=1024", profile=None),
+         "candidate_scores", NOISE, 1.01, 0.95),
     ]
     launches = {k: 0 for k in kernels.LAUNCHES}
     for label, spec, scorer, noise, mse_bound, min_agree in paths:

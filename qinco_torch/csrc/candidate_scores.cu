@@ -19,27 +19,32 @@
 // What bounds it on the card: operations.  At the qinco2-S widths a pair
 // costs about 0.33 MFLOP against about 1 KB of input per row.
 //
-// What the design does about it.  bf16: candidate_scores_tc_kernel,
-// persistent blocks over work items of R rows (the wrapper's
-// candidate_plan picks R so that a launch has enough items to fill the
-// card), every MLP product on the tensor cores (tc.cuh).  The concat
-// layer's condition half rnd(xh)·W[De:], the same for a row's A ids, runs
-// once per item (the ring's head stage) into f32 shared memory; each tile
-// of TM pairs then fetches its codewords (cp.async from the (K, D) bf16
-// codebook, L2-resident at any K the port runs), runs in_proj, the
-// codeword half of the concat layer plus that condition sum (splitting
-// [h0 | cond]·W into h0·W[:De] + cond·W[De:] changes only the order of
-// the f32 sums), the low-rank factor, the FFN blocks and out_proj, and
-// sums the distance in the last product's epilogue into fixed-owner
-// partials.  Only the (rows, A) distances are written.  f32: the first
-// version, candidate_scores_kernel: a block takes a run of 256
-// consecutive pairs and scores them TM at a time with the chain shared
-// with the select-rebuild kernel (mlp_chain_tile) on the CUDA cores.
-#include "step_tc.cuh"
+// What the design does about it.  Both routes are persistent blocks, one
+// an SM, over work items of R rows (the wrapper's candidate_plan picks R
+// so that a launch has enough items to fill the card), with the step's
+// weights streamed through a ring in shared memory.  The concat
+// layer's condition half xh·W[De:], the same for a row's A ids, runs once
+// per item (the ring's head stage) into f32 shared memory; each tile of TM
+// pairs then fetches its codewords, runs in_proj, the codeword half of
+// the concat layer plus that condition sum (splitting [h0 | cond]·W into
+// h0·W[:De] + cond·W[De:] changes only the order of the f32 sums), the
+// low-rank factor, the FFN blocks and out_proj, and sums the distance in
+// the last product's epilogue into fixed-owner partials.  Only the (rows,
+// A) distances are written.
+//   bf16: candidate_scores_tc_kernel, every MLP product on the tensor
+//   cores (tc.cuh), codewords fetched by cp.async from the (K, D) bf16
+//   codebook (L2-resident at any K the port runs), activations bf16.
+//   f32: candidate_scores_f32_kernel, every MLP product in IEEE f32 FFMA
+//   on the CUDA cores (f32_tile.cuh: TF32 would be a different result),
+//   activations f32 in shared memory, an 8 x 8 (256-column passes) or 8 x
+//   4 register tile of sums a thread, the weights (in the blocked layout)
+//   streamed by bulk copies from a producer warp; codewords fetched from
+//   the f32 codebook.  As for
+//   B2', the 32-pair tile of the qinco2-M and -L widths waits on the
+//   weight stream from L2.
+#include "f32_tile.cuh"
 
 namespace qt {
-
-constexpr int kPairs = 256;  // (row, slot) pairs per block
 
 struct CandidateArgs {
   const float* x;         // (NF, D) targets
@@ -49,60 +54,39 @@ struct CandidateArgs {
   ChainWeights w;
   float* out;             // (NF, A) squared distances (packed when pack)
   int NF, A, K, pack, res;
-  int R;                  // rows per work item (tensor-core kernel)
+  int R;                  // rows per work item
 };
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads, 1) candidate_scores_kernel(CandidateArgs g) {
-  using WT = typename WeightT<BF>::T;
-  extern __shared__ __align__(16) float smem[];
-  const int D = g.w.D, De = g.w.De, A = g.A;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long n_all = (long long)g.NF * A;
-  const long long pb = (long long)blockIdx.x * kPairs;
-  const int n_pairs = (int)min((long long)kPairs, n_all - pb);
-
-  float* cand_s = smem;             // (TM, D) rounded codewords, f32
-  float* cond_s = cand_s + TM * D;  // (TM, D) beam rows
-  float* h_s = cond_s + TM * D;     // (TM, De)
-  float* lr_s = h_s + TM * De;      // (TM, Wc) with the low-rank factor
-  float* cat_s = lr_s + (g.w.concat_w2 ? TM * g.w.Wc : 0);  // (TM, max(De + D, Dh, D))
-  const WT* book = static_cast<const WT*>(g.codebook);
-
-  for (int p0 = 0; p0 < n_pairs; p0 += TM) {
-    for (int e = tid; e < TM * D; e += kThreads) {
-      const int t = e / D, c = e - t * D;
-      float cv = 0.f, hv = 0.f;
-      if (p0 + t < n_pairs) {
-        const long long p = pb + p0 + t;
-        const int id = g.idx[p];
-        if ((unsigned)id < (unsigned)g.K) cv = to_f32(book[(size_t)id * D + c]);
-        hv = g.xh[(size_t)(p / A) * D + c];
-      }
-      cand_s[e] = cv;
-      cond_s[e] = hv;
-    }
-    __syncthreads();
-    // cat_s is free once the chain's FFN blocks are done: it takes x - cand_abs
-    mlp_chain_tile<TM, BF>(g.w, cand_s, cond_s, h_s, lr_s, cat_s, g.res,
-                           [&](int t, int c, float v) {
-                             float xv = 0.f;
-                             if (p0 + t < n_pairs) xv = g.x[(size_t)((pb + p0 + t) / A) * D + c];
-                             cat_s[t * D + c] = xv - v;
-                           });
-    __syncthreads();
-    for (int t = warp; t < TM && p0 + t < n_pairs; t += kWarps) {
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) s = fmaf(cat_s[t * D + c], cat_s[t * D + c], s);
-      s = warp_sum(s);
-      if (lane == 0) {
-        const long long p = pb + p0 + t;
-        g.out[p] = g.pack ? pack_id(s, g.idx[p]) : s;
-      }
-    }
-    __syncthreads();
+// Shared-memory layout of the f32 kernel (byte offsets), the same
+// arithmetic as candidate_plan in qinco_torch/ops/kernels.py:
+//   stage table | x (R, D) | cc (R, Wc) | ids (R, A) int32 | score partials
+//   (TM, 32) | xh (R, ld D) | per tile cand (TM, ld D), h (TM, ld De) and
+//   one buffer that holds h0 = cand·P (TM, ld De, with in_proj) and the
+//   low-rank product (TM, ld Wc), later the FFN hidden (TM, ld Dh) | the
+//   weight ring (f32::ring_bytes).  All f32; ld w = w + 4.  xh comes last
+//   before the tiles: the condition product reads TM rows from it, of
+//   which R are its own.
+struct CandidateF32Layout {
+  unsigned x, cc, ids, part, xh, cand, h, big, lr, ring, total;
+  __host__ __device__ CandidateF32Layout(const CandidateArgs& g, int TM) {
+    using f32::ld_of;
+    using tc::align16;
+    const size_t R = g.R, T = TM, D = g.w.D, De = g.w.De;
+    x = f32::kStageBytes;
+    cc = x + align16(4 * R * D);
+    ids = cc + align16(4 * R * g.w.Wc);
+    part = ids + align16(4 * R * g.A);
+    xh = part + 4 * T * f32::kSlots;
+    cand = xh + 4 * R * ld_of(D);
+    h = cand + 4 * T * ld_of(D);
+    big = h + 4 * T * ld_of(De);
+    lr = big + (g.w.in_proj ? 4 * T * ld_of(De) : 0);
+    const size_t h0_lr = lr + (g.w.concat_w2 ? 4 * T * ld_of(g.w.Wc) : 0) - big;
+    const size_t hid = 4 * T * ld_of(g.w.Dh);
+    ring = big + align16(h0_lr > hid ? h0_lr : hid);
+    total = ring + f32::ring_bytes(TM);
   }
-}
+};
 
 // Shared-memory layout of the tensor-core kernel (byte offsets), the same
 // arithmetic as candidate_plan in qinco_torch/ops/kernels.py:
@@ -142,6 +126,149 @@ struct CandidateLayout {
 // (U_l, D_l) x L, [out_proj].
 __host__ __device__ inline int candidate_stages(const ChainWeights& w) {
   return 1 + (w.in_proj ? 1 : 0) + 1 + (w.concat_w2 ? 1 : 0) + 2 * w.L + (w.out_proj ? 1 : 0);
+}
+
+// f32 route: every MLP product in f32 FFMA on the CUDA cores (f32_tile.cuh).
+// A block walks the work items blockIdx.x, blockIdx.x + gridDim.x, ...: R
+// rows each, their R·A pairs in tiles of TM; pair p = i * A + a.
+template <int TM>
+__global__ void __launch_bounds__(f32::kBlock, 1)
+    candidate_scores_f32_kernel(CandidateArgs g) {
+  using namespace f32;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ChainWeights& w = g.w;
+  const int D = w.D, De = w.De, Dh = w.Dh, Wc = w.Wc, L = w.L, A = g.A, R = g.R;
+  const int tid = threadIdx.x;
+  const bool low_rank = w.concat_w2 != nullptr, proj = w.out_proj != nullptr;
+  const CandidateF32Layout lay(g, TM);
+  float* x_s = reinterpret_cast<float*>(sm + lay.x);        // (R, D) targets
+  float* cc_s = reinterpret_cast<float*>(sm + lay.cc);      // (R, Wc) xh·W[De:] (+ b)
+  int* id_s = reinterpret_cast<int*>(sm + lay.ids);         // (R, A) the pairs' ids
+  float* part_s = reinterpret_cast<float*>(sm + lay.part);  // (TM, kSlots) distance partials
+  float* xh_s = reinterpret_cast<float*>(sm + lay.xh);      // (R, ldd) beam rows
+  float* cand_s = reinterpret_cast<float*>(sm + lay.cand);  // (TM, ldd) fetched codewords
+  float* h_s = reinterpret_cast<float*>(sm + lay.h);        // (TM, ldh)
+  float* hid_s = reinterpret_cast<float*>(sm + lay.big);    // (TM, ldf) FFN hidden
+  float* lr_s = reinterpret_cast<float*>(sm + lay.lr);      // (TM, ldr) low-rank product
+  const int ldd = ld_of(D), ldh = ld_of(De), ldf = ld_of(Dh), ldr = ld_of(Wc);
+  // h0: cand·P with in_proj (in the big buffer), else the codeword
+  float* h0_s = w.in_proj ? hid_s : cand_s;
+  const int ld0 = w.in_proj ? ldh : ldd;
+
+  // The weight stream, every weight in the blocked layout: the condition
+  // half (concat_w's rows De ..) once per item, then per tile [in_proj],
+  // the codeword half, [concat_w2], (U_l, D_l) x L, [out_proj].
+  Stage* stages = reinterpret_cast<Stage*>(sm);
+  if (tid == 0) {
+    const float* cw = static_cast<const float*>(w.concat_w);
+    const float* up = static_cast<const float*>(w.ffn_up);
+    const float* down = static_cast<const float*>(w.ffn_down);
+    const int cstride = (De + D) * kPass;
+    int n = 0;
+    stages[n++] = {cw + (size_t)De * kPass, D, Wc, cstride};
+    if (w.in_proj) stages[n++] = {static_cast<const float*>(w.in_proj), D, De, D * kPass};
+    stages[n++] = {cw, De, Wc, cstride};
+    if (low_rank) stages[n++] = {static_cast<const float*>(w.concat_w2), Wc, De, Wc * kPass};
+    for (int l = 0; l < L; ++l) {
+      stages[n++] = {up + l * blocked(De, Dh), De, Dh, De * kPass};
+      stages[n++] = {down + l * blocked(Dh, De), Dh, De, Dh * kPass};
+    }
+    if (proj) stages[n++] = {static_cast<const float*>(w.out_proj), De, D, De * kPass};
+  }
+  __syncthreads();
+  const int n_pairs = R * A, n_items = (g.NF + R - 1) / R;
+  Ring ring;
+  ring.init(sm + lay.ring, stages, 1, candidate_stages(w),
+            (n_pairs + TM - 1) / TM, TM == 64);
+  if (tid >= kThreads) {  // the producer warpgroup: its first warp streams the weights
+    producer_regs();
+    if (tid < kThreads + 32) ring.produce_all((n_items - blockIdx.x + gridDim.x - 1) / gridDim.x);
+    return;
+  }
+  consumer_regs();
+  const float* book = static_cast<const float*>(g.codebook);
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int row0 = item * R, n_rows = min(R, g.NF - row0), n_valid = n_rows * A;
+    sync();  // the last item's readers of x, xh, cc, ids and the tiles are done
+
+    // ---- x and xh, 4 columns a thread (rows past n_rows are zero); the ids
+    const int D4 = D / 4;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    copy4(
+        R * D4, [&](int e) { return e / D4 < n_rows ? ld4(g.x + (size_t)row0 * D + 4 * e) : zero; },
+        [&](int e, float4 v) { st4(x_s + 4 * e, v); });
+    copy4(
+        R * D4,
+        [&](int e) { return e / D4 < n_rows ? ld4(g.xh + (size_t)row0 * D + 4 * e) : zero; },
+        [&](int e, float4 v) { st4(xh_s + (e / D4) * ldd + 4 * (e % D4), v); });
+    for (int e = tid; e < n_pairs; e += kThreads)
+      id_s[e] = e < n_valid ? g.idx[(size_t)row0 * A + e] : 0;
+    // ---- the condition half of the concat layer, once per row: cc =
+    // xh·W[De:], plus the bias unless a low-rank factor follows
+    stage<TM>(ring, xh_s, ldd, D, Wc, R, [&](int t, int c, float4 v) {
+      st4(cc_s + t * Wc + c, low_rank ? v : add4(v, ld4(w.concat_b + c)));
+    });
+
+    // ---- the (row, slot) pairs, TM at a time
+    for (int p0 = 0; p0 < n_pairs; p0 += TM) {
+      const int rows = max(0, min(TM, n_valid - p0));
+      sync();  // cc and the ids are in; the tiles' last readers are done
+      // an id outside [0, K) fetches zeros, as the one-hot product does
+      copy4(
+          rows * D4,
+          [&](int e) {
+            const int id = id_s[p0 + e / D4];
+            return (unsigned)id < (unsigned)g.K ? ld4(book + (size_t)id * D + 4 * (e % D4)) : zero;
+          },
+          [&](int e, float4 v) { st4(cand_s + (e / D4) * ldd + 4 * (e % D4), v); });
+      for (int e = tid; e < TM * kSlots; e += kThreads) part_s[e] = 0.f;
+
+      // d = ||x - ((out + cand) + xh)||^2, JAX's order of the f32 adds
+      auto score = [&](int t, int c, float4 o) {
+        const int i = (p0 + t) / A;
+        if (g.res) o = add4(o, ld4(cand_s + t * ldd + c));
+        f32::add_score(part_s, t, sub4(ld4(x_s + i * D + c), add4(o, ld4(xh_s + i * ldd + c))));
+      };
+      // out = h when there is no out_proj: the last product carries the score
+      auto h_out = [&](int t, int c, float4 o) {
+        if (!proj) score(t, c, o);
+      };
+      auto cc_of = [&](int t, int c) { return ld4(cc_s + ((p0 + t) / A) * Wc + c); };
+      // h = h0 + concat(...), the concat layer's output written to h
+      auto concat_out = [&](int t, int c, float4 v) {
+        const float4 o = add4(ld4(h0_s + t * ld0 + c), v);
+        st4(h_s + t * ldh + c, o);
+        if (!proj && L == 0) score(t, c, o);
+      };
+
+      if (w.in_proj)  // h0 = cand·P
+        stage<TM>(ring, cand_s, ldd, D, De, rows,
+                  [&](int t, int c, float4 v) { st4(h0_s + t * ld0 + c, v); });
+      if (low_rank) {
+        // lr = h0·W[:De] + cc;  h = h0 + (lr·W2 + b)
+        stage<TM>(ring, h0_s, ld0, De, Wc, rows, [&](int t, int c, float4 v) {
+          st4(lr_s + t * ldr + c, add4(v, cc_of(t, c)));
+        });
+        stage<TM>(ring, lr_s, ldr, Wc, De, rows, [&](int t, int c, float4 v) {
+          concat_out(t, c, add4(v, ld4(w.concat_b + c)));
+        });
+      } else {
+        // h = h0 + (h0·W[:De] + cc)
+        stage<TM>(ring, h0_s, ld0, De, De, rows,
+                  [&](int t, int c, float4 v) { concat_out(t, c, add4(v, cc_of(t, c))); });
+      }
+      ffn<TM>(ring, h_s, ldh, hid_s, ldf, L, De, Dh, rows, h_out);
+      if (proj) stage<TM>(ring, h_s, ldh, De, D, rows, score);
+      sync();
+      // ---- the pairs' sums
+      for (int t = tid; t < rows; t += kThreads) {
+        const int p = p0 + t;
+        const float s = f32::sum_score(part_s, t);
+        g.out[(size_t)row0 * A + p] = g.pack ? pack_id(s, id_s[p]) : s;
+      }
+    }
+  }
 }
 
 // bf16 route: every MLP product on the tensor cores.  A block walks the
@@ -339,12 +466,11 @@ extern "C" int qt_candidate_scores(const float* x, const float* xh, const int* i
     return static_cast<int>(tm == 128 ? tc::launch_tc(candidate_scores_tc_kernel<4>, blocks, smem, s, a)
                                       : tc::launch_tc(candidate_scores_tc_kernel<2>, blocks, smem, s, a));
   }
-  const long long n_all = (long long)NF * A;
-  const int grid = (int)((n_all + kPairs - 1) / kPairs);
-  switch (tm) {
-    case 64: return static_cast<int>(launch_kernel(candidate_scores_kernel<64, false>, grid, smem, s, a));
-    case 32: return static_cast<int>(launch_kernel(candidate_scores_kernel<32, false>, grid, smem, s, a));
-    case 16: return static_cast<int>(launch_kernel(candidate_scores_kernel<16, false>, grid, smem, s, a));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // f32: the plan's tile, rows a work item and shared memory, or nothing
+  if (candidate_stages(w) > f32::kMaxStages || (size_t)smem < CandidateF32Layout(a, tm).total ||
+      rows < 1 || blocks < 1 || (tm != 64 && tm != 32) || (D | De | Dh | Wc) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tm == 64
+                              ? f32::launch(candidate_scores_f32_kernel<64>, blocks, smem, s, a)
+                              : f32::launch(candidate_scores_f32_kernel<32>, blocks, smem, s, a));
 }

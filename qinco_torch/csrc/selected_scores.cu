@@ -23,26 +23,40 @@
 //
 // What bounds it on the card: operations.  At qinco2-S a beam row costs
 // about 4.8 MFLOP (the A slots' MLP is 98% of it) against about 0.6 KB
-// of input and output, far above the H100's ~295 FLOP/byte bf16 ridge.
+// of input and output, far above the H100's ridge in bf16 (~295
+// FLOP/byte) and in f32 on the CUDA cores (~20 FLOP/byte).
 //
-// What the design does about it.  bf16 (the parity profile):
-// selected_scores_tc_kernel, persistent blocks over work items of R beam
-// rows (the wrapper picks R so that a launch has enough items to fill the
-// card), every MLP product on the tensor cores (tc.cuh): the condition
-// product once per item, then tiles of TM (row, slot) pairs through the
-// lean fetch's product, the FFN blocks and out_proj, activations as bf16
-// in shared memory, weights streamed through a cp.async ring.  The
-// substep tile (K x R) and a warp-per-row min-and-remove give the exact
-// top-A on the CUDA cores in f32, as in the f32 kernel, so the candidate
-// set is the same.  Nothing but the packed (rows, A) result goes back to
-// device memory.  f32 (pallas=true's external vals): selected_scores_kernel,
-// 32 rows per block, the MLP on the CUDA cores in f32 (mlp_stage), reading
-// the weights from L2: TF32 would be a different result.
-#include "step_tc.cuh"
+// What the design does about it.  Both routes are persistent blocks, one
+// an SM, over work items of R beam rows (the wrapper's selected_plan picks
+// R so that a launch has enough items to fill the card): per item r = x -
+// xh, the condition product once, the top-A; then tiles of TM (row, slot)
+// pairs through the lean fetch's product (or the folded table's h slice),
+// the FFN blocks and out_proj, with the step's weights streamed through a
+// ring in shared memory and the distance summed in the last
+// product's epilogue into fixed-owner partials.  Nothing but the packed
+// (rows, A) result goes back to device memory.  The substep tile (K x R)
+// and a warp-per-row min-and-remove give the exact top-A on the CUDA cores
+// in f32 on both routes, so the candidate set and its order are the same.
+//   bf16 (the parity profile): selected_scores_tc_kernel, every MLP
+//   product on the tensor cores (tc.cuh), activations bf16 in shared
+//   memory, the weights filled by cp.async.
+//   f32 (pallas=true's external vals; fast_encode=true pallas=true at f32
+//   in-kernel): selected_scores_f32_kernel, every MLP product in IEEE f32
+//   FFMA on the CUDA cores (f32_tile.cuh: TF32 would be a different
+//   result), activations f32 in shared memory, an 8 x 8 (256-column
+//   passes) or 8 x 4 register tile of sums a thread, the weights (in the
+//   blocked layout) streamed by bulk copies from a producer warp, so the
+//   8 math warps meet at no block barrier per weight slab.  Each tile
+//   streams the step's weights from L2: a weight byte feeds 32 FLOP at 64
+//   pairs a tile (qinco2-S), so the f32 peak would draw 2.1 TB/s of L2
+//   across the card, and 16 FLOP at 32 pairs (qinco2-M and -L, where 64
+//   rows of f32 activations do not fit), 4.2 TB/s: those widths wait on
+//   the stream.
+#include "f32_tile.cuh"
 
 namespace qt {
 
-constexpr int kRows = 32;  // beam rows per block of the f32 kernel
+constexpr int kRows = 32;  // the most beam rows of a work item
 
 struct SelectedArgs {
   const float* x;         // (NF / F_in, D) per-vector targets
@@ -59,119 +73,10 @@ struct SelectedArgs {
   const void* out_proj;   // (De, D) or null
   float* out;             // (NF, A) packed distances
   int NF, F_in, D, K, De, Dh, L, A, Wt, res;
-  int R;                  // beam rows per work item (tensor-core kernel)
+  int R;                  // beam rows per work item
 };
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads, 1) selected_scores_kernel(SelectedArgs g) {
-  using WT = typename WeightT<BF>::T;
-  extern __shared__ __align__(16) float smem[];
-  constexpr int R = kRows;
-  const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * R;
-  const int n_rows = min(R, g.NF - row0);
-
-  float* r_s = smem;              // (R, D) residual target
-  float* ccb_s = r_s + R * D;     // (R, De) rnd(xh)·W2 + b
-  float* val_s = ccb_s + R * De;  // (R, A) packed top-A substep values
-  float* u_s = val_s + R * A;     // the phases' buffers, overlaid
-
-  // ---- phase 0: r = x - xh and the condition half of the concat layer
-  float* xh_s = u_s;  // (R, D)
-  for (int e = tid; e < R * D; e += kThreads) {
-    const int i = e / D, c = e - i * D;
-    float xv = 0.f, hv = 0.f;
-    if (i < n_rows) {
-      const int row = row0 + i;
-      hv = g.xh[(size_t)row * D + c];
-      xv = g.x[(size_t)(row / g.F_in) * D + c];
-    }
-    xh_s[e] = hv;
-    r_s[e] = xv - hv;
-  }
-  __syncthreads();
-  mlp_stage<R, true, BF>(xh_s, D, static_cast<const WT*>(g.w2), D, De,
-                         [&](int i, int c, float acc) { ccb_s[i * De + c] = acc + g.concat_b[c]; });
-  __syncthreads();
-
-  if (g.vals) {
-    // ---- external top-A: the packed values carry the ids
-    for (int e = tid; e < R * A; e += kThreads)
-      val_s[e] = e / A < n_rows ? g.vals[(size_t)row0 * A + e] : 0.f;
-    __syncthreads();
-  } else {
-    // ---- phase 1: packed substep partial distances, a (K, R) tile
-    float* rr_s = u_s;          // (R, D) r rounded to the compute dtype
-    float* S_s = rr_s + R * D;  // (K, R + 1)
-    for (int e = tid; e < R * D; e += kThreads) rr_s[e] = rnd<BF>(r_s[e]);
-    __syncthreads();
-    substep_tile<R>(rr_s, D, g.sub_t, g.cn2, K, S_s);
-    __syncthreads();
-
-    // ---- phase 2: exact top-A per row, ascending.  A rounds of (warp
-    // min, remove the winner).  The packed values of one row are
-    // pairwise distinct (their ids differ), so each round removes exactly
-    // one entry and the order is that of a stable sort of the packed
-    // values.  They are compared as floats: partial distances can be
-    // negative.
-    for (int i = warp; i < R; i += kWarps) {
-      float v[8];  // K <= 256 = 32 lanes x 8
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = lane + 32 * j;
-        v[j] = k < K ? S_s[k * (R + 1) + i] : CUDART_INF_F;
-      }
-      for (int a = 0; a < A; ++a) {
-        float m = v[0];
-#pragma unroll
-        for (int j = 1; j < 8; ++j) m = fminf(m, v[j]);
-#pragma unroll
-        for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off));
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (v[j] == m) v[j] = CUDART_INF_F;
-        if (lane == 0) val_s[i * A + a] = m;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- phase 3: fetch, MLP and distance for the (row, slot) pairs,
-  // TM at a time; pair p = i * A + a is val_s[p].
-  float* cand_s = u_s;            // (TM, D) fetched codewords
-  float* h_s = cand_s + TM * D;   // (TM, De)
-  float* big_s = h_s + TM * De;   // (TM, max(Dh, D)): FFN hidden, then out
-  const WT* table = static_cast<const WT*>(g.table);
-  const int n_pairs = R * A;
-  for (int p0 = 0; p0 < n_pairs; p0 += TM) {
-    for (int e = tid; e < TM * D; e += kThreads) {
-      const int t = e / D, c = e - t * D, p = p0 + t;
-      cand_s[e] = p < n_pairs ? to_f32(table[(size_t)unpack_id(val_s[p]) * Wt + c]) : 0.f;
-    }
-    if (g.wfold) {
-      __syncthreads();
-      mlp_stage<TM, false, BF>(cand_s, D, static_cast<const WT*>(g.wfold), D, De,
-                               [&](int t, int c, float acc) {
-                                 const int i = min(p0 + t, n_pairs - 1) / A;
-                                 h_s[t * De + c] = rnd<BF>(acc + ccb_s[i * De + c]);
-                               });
-    } else {
-      for (int e = tid; e < TM * De; e += kThreads) {
-        const int t = e / De, c = e - t * De, p = min(p0 + t, n_pairs - 1);
-        h_s[e] = rnd<BF>(to_f32(table[(size_t)unpack_id(val_s[p]) * Wt + D + c]) +
-                         ccb_s[(p / A) * De + c]);
-      }
-    }
-    __syncthreads();
-    ffn_blocks<TM, BF>(h_s, big_s, g.ffn_up, g.ffn_down, 0, g.L, De, Dh);
-    score_pairs<TM, BF>(h_s, big_s, g.out_proj, cand_s, r_s, val_s, p0, n_pairs, A, n_rows, D,
-                        De, g.res, g.out + (size_t)row0 * A);
-    __syncthreads();
-  }
-}
-
-// The exact top-A of the f32 kernel's phase 2, each warp taking its rows
+// The exact top-A of a work item's rows, each warp taking its rows
 // (warp, warp + 8, warp + 16, warp + 24 of R <= 32) side by side.
 __device__ __forceinline__ void top_a_rows(const float* S_s, int R, int K, int A, float* val_s) {
   constexpr int G = kRows / tc::kTcWarps;
@@ -209,6 +114,182 @@ __device__ __forceinline__ void top_a_rows(const float* S_s, int R, int K, int A
   }
 }
 
+// Products in a kernel's weight stream.
+__host__ __device__ inline int selected_stages(const SelectedArgs& g) {
+  return 1 + (g.wfold ? 1 : 0) + 2 * g.L + (g.out_proj ? 1 : 0);
+}
+
+// Shared-memory layout of the f32 kernel (byte offsets), the same
+// arithmetic as selected_plan in qinco_torch/ops/kernels.py:
+//   stage table | r (R, D) | ccb (R, De) | vals (R, A) | score partials
+//   (TM, 32) | one region, overlaid by phase: xh (TM, ld D), the condition
+//   product's A;  then the substep tile (K, R + 1);  then per tile cand
+//   (TM, ld D), h (TM, ld De) and the FFN hidden (TM, ld Dh) | the weight
+//   ring (f32::ring_bytes).  All f32; ld w = w + 4.
+struct SelectedF32Layout {
+  unsigned r, ccb, val, part, u, cand, h, big, ring, total;
+  __host__ __device__ SelectedF32Layout(const SelectedArgs& g, int TM, bool topa) {
+    using f32::ld_of;
+    using tc::align16;
+    const size_t R = g.R, T = TM;
+    r = f32::kStageBytes;
+    ccb = r + align16(4 * R * g.D);
+    val = ccb + align16(4 * R * g.De);
+    part = val + align16(4 * R * g.A);
+    u = part + 4 * T * f32::kSlots;
+    const size_t phase0 = 4 * T * ld_of(g.D);
+    const size_t substep = topa ? 4 * (size_t)g.K * (R + 1) : 0;
+    cand = u;
+    h = cand + 4 * T * ld_of(g.D);
+    big = h + 4 * T * ld_of(g.De);
+    const size_t tiles = big + 4 * T * ld_of(g.Dh) - u;
+    size_t region = phase0 > substep ? phase0 : substep;
+    region = region > tiles ? region : tiles;
+    ring = u + align16(region);
+    total = ring + f32::ring_bytes(TM);
+  }
+};
+
+// f32 route: every MLP product in f32 FFMA on the CUDA cores (f32_tile.cuh).
+// A block walks the work items blockIdx.x, blockIdx.x + gridDim.x, ...: R
+// beam rows each, their R·A pairs in tiles of TM; pair p = i * A + a.
+template <int TM>
+__global__ void __launch_bounds__(f32::kBlock, 1)
+    selected_scores_f32_kernel(SelectedArgs g) {
+  using namespace f32;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt, R = g.R, L = g.L;
+  const int tid = threadIdx.x;
+  const bool topa = g.vals == nullptr, proj = g.out_proj != nullptr;
+  const SelectedF32Layout lay(g, TM, topa);
+  float* r_s = reinterpret_cast<float*>(sm + lay.r);        // (R, D) residual target
+  float* ccb_s = reinterpret_cast<float*>(sm + lay.ccb);    // (R, De) xh·W2 + b
+  float* val_s = reinterpret_cast<float*>(sm + lay.val);    // (R, A) packed top-A values
+  float* part_s = reinterpret_cast<float*>(sm + lay.part);  // (TM, kSlots) distance partials
+  float* xh_s = reinterpret_cast<float*>(sm + lay.u);       // (TM, ldd) beam rows
+  float* S_s = reinterpret_cast<float*>(sm + lay.u);        // (K, R + 1) substep tile
+  float* cand_s = reinterpret_cast<float*>(sm + lay.cand);  // (TM, ldd) fetched codewords
+  float* h_s = reinterpret_cast<float*>(sm + lay.h);        // (TM, ldh)
+  float* hid_s = reinterpret_cast<float*>(sm + lay.big);    // (TM, ldf) FFN hidden
+  const int ldd = ld_of(D), ldh = ld_of(De), ldf = ld_of(Dh);
+  const float* table = static_cast<const float*>(g.table);
+
+  // The weight stream: the condition product once per item, then per tile
+  // [wfold], (U_l, D_l) x L, [out_proj]; every weight in the blocked layout.
+  Stage* stages = reinterpret_cast<Stage*>(sm);
+  if (tid == 0) {
+    const float* up = static_cast<const float*>(g.ffn_up);
+    const float* down = static_cast<const float*>(g.ffn_down);
+    int n = 0;
+    stages[n++] = {static_cast<const float*>(g.w2), D, De, D * kPass};
+    if (g.wfold) stages[n++] = {static_cast<const float*>(g.wfold), D, De, D * kPass};
+    for (int l = 0; l < L; ++l) {
+      stages[n++] = {up + l * blocked(De, Dh), De, Dh, De * kPass};
+      stages[n++] = {down + l * blocked(Dh, De), Dh, De, Dh * kPass};
+    }
+    if (proj) stages[n++] = {static_cast<const float*>(g.out_proj), De, D, De * kPass};
+  }
+  __syncthreads();
+  const int n_pairs = R * A, n_items = (g.NF + R - 1) / R;
+  Ring ring;
+  ring.init(sm + lay.ring, stages, 1, selected_stages(g),
+            (n_pairs + TM - 1) / TM, TM == 64);
+  if (tid >= kThreads) {  // the producer warpgroup: its first warp streams the weights
+    producer_regs();
+    if (tid < kThreads + 32) ring.produce_all((n_items - blockIdx.x + gridDim.x - 1) / gridDim.x);
+    return;
+  }
+  consumer_regs();
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int row0 = item * R, n_rows = min(R, g.NF - row0), n_valid = n_rows * A;
+    sync();  // the last item's readers of r, vals and the region are done
+
+    // ---- xh, then r = x - xh (each thread subtracts its own xh), 4
+    // columns a thread; rows past n_rows are zero
+    const int D4 = D / 4;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    copy4(
+        R * D4,
+        [&](int e) { return e / D4 < n_rows ? ld4(g.xh + (size_t)row0 * D + 4 * e) : zero; },
+        [&](int e, float4 v) { st4(xh_s + (e / D4) * ldd + 4 * (e % D4), v); });
+    copy4(
+        R * D4,
+        [&](int e) {
+          const int i = e / D4;
+          return i < n_rows ? ld4(g.x + (size_t)((row0 + i) / g.F_in) * D + 4 * (e % D4)) : zero;
+        },
+        [&](int e, float4 v) {
+          st4(r_s + 4 * e, sub4(v, ld4(xh_s + (e / D4) * ldd + 4 * (e % D4))));
+        });
+    // ---- the condition half of the concat layer: ccb = xh·W2 + b
+    stage<TM>(ring, xh_s, ldd, D, De, R, [&](int t, int c, float4 v) {
+      st4(ccb_s + t * De + c, add4(v, ld4(g.concat_b + c)));
+    });
+    sync();  // ccb is in; the region's readers of xh are done
+
+    if (!topa) {
+      // ---- external top-A: the packed values carry the ids
+      for (int e = tid; e < R * A; e += kThreads)
+        val_s[e] = e / A < n_rows ? g.vals[(size_t)row0 * A + e] : 0.f;
+    } else {
+      // ---- packed substep partial distances (K, R) and the exact top-A;
+      // r is its own rounding to f32
+      substep_rows(r_s, R, D, g.sub_t, g.cn2, K, S_s);
+      sync();
+      top_a_rows(S_s, R, K, A, val_s);
+    }
+
+    // ---- the (row, slot) pairs, TM at a time
+    for (int p0 = 0; p0 < n_pairs; p0 += TM) {
+      const int rows = max(0, min(TM, n_valid - p0));
+      sync();  // vals are in; the region's last readers are done
+      const auto row_of = [&](int t) { return table + (size_t)unpack_id(val_s[p0 + t]) * Wt; };
+      copy4(
+          rows * D4, [&](int e) { return ld4(row_of(e / D4) + 4 * (e % D4)); },
+          [&](int e, float4 v) { st4(cand_s + (e / D4) * ldd + 4 * (e % D4), v); });
+      if (!g.wfold) {  // the folded table's h slice: h = table[id][D:] + ccb
+        const int De4 = De / 4;
+        copy4(
+            rows * De4, [&](int e) { return ld4(row_of(e / De4) + D + 4 * (e % De4)); },
+            [&](int e, float4 v) {
+              const int t = e / De4, c = 4 * (e % De4);
+              st4(h_s + t * ldh + c, add4(v, ld4(ccb_s + ((p0 + t) / A) * De + c)));
+            });
+      }
+      for (int e = tid; e < TM * kSlots; e += kThreads) part_s[e] = 0.f;
+      if (g.wfold)  // the lean fetch: h = cand·wfold + ccb
+        stage<TM>(ring, cand_s, ldd, D, De, rows, [&](int t, int c, float4 v) {
+          st4(h_s + t * ldh + c, add4(v, ld4(ccb_s + ((p0 + t) / A) * De + c)));
+        });
+      // d = ||r - out - cand||^2: each (t, c .. c + 3) of out adds its
+      // squares to the thread's slot; out is the last product's output
+      auto score = [&](int t, int c, float4 o) {
+        float4 d = sub4(ld4(r_s + ((p0 + t) / A) * D + c), o);
+        if (g.res) d = sub4(d, ld4(cand_s + t * ldd + c));
+        f32::add_score(part_s, t, d);
+      };
+      if (proj) {
+        ffn<TM>(ring, h_s, ldh, hid_s, ldf, L, De, Dh, rows, NoLast{});
+        stage<TM>(ring, h_s, ldh, De, D, rows, score);
+      } else {
+        ffn<TM>(ring, h_s, ldh, hid_s, ldf, L, De, Dh, rows, score);
+      }
+      sync();
+      if (!proj && L == 0) {  // out = h, no product left to carry the sums
+        for (int t = tid; t < rows; t += kThreads)
+          for (int c = 0; c < D; c += 4) score(t, c, ld4(h_s + t * ldh + c));
+        sync();
+      }
+      // ---- the slots' sums, packed with the slot's id
+      for (int t = tid; t < rows; t += kThreads) {
+        const int p = p0 + t;
+        g.out[(size_t)row0 * A + p] = pack_id(f32::sum_score(part_s, t), unpack_id(val_s[p]));
+      }
+    }
+  }
+}
+
 // Shared-memory layout of the tensor-core kernel (byte offsets), the same
 // arithmetic as selected_plan in qinco_torch/ops/kernels.py:
 //   stage table | r (R, D) f32 | ccb (R, De) f32 | vals (R, A) f32 |
@@ -239,11 +320,6 @@ struct SelectedLayout {
     total = ring + tc::kRingBytes;
   }
 };
-
-// Products in the tensor-core kernel's weight stream.
-__host__ __device__ inline int selected_stages(const SelectedArgs& g) {
-  return 1 + (g.wfold ? 1 : 0) + 2 * g.L + (g.out_proj ? 1 : 0);
-}
 
 // bf16 route: every MLP product on the tensor cores.  A block walks the
 // work items blockIdx.x, blockIdx.x + gridDim.x, ...: R beam rows each,
@@ -422,11 +498,12 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
     return static_cast<int>(tm == 128 ? tc::launch_tc(selected_scores_tc_kernel<4>, blocks, smem, s, a)
                                       : tc::launch_tc(selected_scores_tc_kernel<2>, blocks, smem, s, a));
   }
-  const int grid = (NF + kRows - 1) / kRows;
-  switch (tm) {
-    case 64: return static_cast<int>(launch_kernel(selected_scores_kernel<64, false>, grid, smem, s, a));
-    case 32: return static_cast<int>(launch_kernel(selected_scores_kernel<32, false>, grid, smem, s, a));
-    case 16: return static_cast<int>(launch_kernel(selected_scores_kernel<16, false>, grid, smem, s, a));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // f32: the plan's tile, rows a work item and shared memory, or nothing
+  if (selected_stages(a) > f32::kMaxStages ||
+      (size_t)smem < SelectedF32Layout(a, tm, vals == nullptr).total || rows < 1 ||
+      rows > kRows || blocks < 1 || (tm != 64 && tm != 32) || (D | De | Dh | Wt) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tm == 64
+                              ? f32::launch(selected_scores_f32_kernel<64>, blocks, smem, s, a)
+                              : f32::launch(selected_scores_f32_kernel<32>, blocks, smem, s, a));
 }

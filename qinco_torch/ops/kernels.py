@@ -25,11 +25,18 @@ there is no fallback from one to the other.  The kernels are compiled by
 ``nvcc`` at first use into ``build/qinco_torch_kernels/`` and loaded with
 ``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
 
-Under bf16 every kernel runs its MLP products on the tensor cores;
-:func:`selected_plan`, :func:`fused_plan`, :func:`candidate_plan` and
-:func:`rebuild_plan` work out their launch (tile, rows or vectors per
-work item, shared memory, blocks) from the shapes alone.  Under float32
-they are the CUDA-core kernels.
+Under bf16 every kernel runs its MLP products on the tensor cores.
+Under float32 they run on the CUDA cores in IEEE f32 FFMA (TF32 would
+give other results): B2 and B5 through the register-tiled stage of
+``csrc/f32_tile.cuh`` (persistent blocks, the weights streamed by bulk
+copies in the blocked layout of :func:`blocked`), B3 and B4 in their
+first versions.  :func:`selected_plan`, :func:`fused_plan`,
+:func:`candidate_plan` and :func:`rebuild_plan` work out each launch
+(tile, rows or vectors per work item, shared memory, blocks) from the
+shapes alone, and raise where nothing fits.  The CPU tests
+(``tests/test_torch_kernel_plan.py``) hold the plans; ``chip_smoke.py``
+and ``tests/test_torch_cuda.py`` hold each kernel against its plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -64,9 +71,8 @@ _NVCC_FLAGS = [
 ]
 # Dynamic shared memory a block may use on sm_90 (232,448 bytes).
 _SMEM_LIMIT = 227 * 1024
-_ROWS = 32  # beam rows per selected / fused-substep block (kRows in the .cu)
+_ROWS = 32  # beam rows per f32 fused-substep block, the most of a work item (kRows)
 _VECS = 8  # vectors per select-rebuild block of the f32 kernel (one warp each)
-_PAIRS = 256  # (row, slot) pairs per candidate-scores block of the f32 kernel
 # The tensor-core kernels (csrc/tc.cuh): one block per SM, and a launch
 # should offer at least one work item per SM of an H100 SXM.
 _SMS = 132
@@ -75,6 +81,13 @@ _MMA_WIDTH = 16  # every width is a multiple of the mma tile's 16
 _MMA_STAGES = 64  # tc::kMaxStages: products in one weight stream
 _STAGE_BYTES = _MMA_STAGES * 16  # tc::kStageBytes: the stage table
 _RING_BYTES = 3 * 32 * (128 + 8) * 2  # tc::kRingBytes: 3 slabs of 32 x 128 bf16, padded
+# The f32 kernels of B2' and B5 (csrc/f32_tile.cuh): one block per SM too.
+_F32_TILES = (64, 32)  # MLP row tiles, largest first
+_F32_PASS = 128  # f32::kPass: output columns of a pass, the blocked layout's width
+_F32_STAGES = 64  # f32::kMaxStages
+_F32_STAGE_BYTES = _F32_STAGES * 24  # f32::kStageBytes
+_F32_RING_BYTES = 64 + 3 * 32 * 128 * 4  # f32::kRingBytes: barriers, 3 slabs of 32 x 128 f32
+_F32_SLOTS = 32  # f32::kSlots: distance partials a tile row
 
 
 def _compute_dtype(spec: QincoSpec) -> torch.dtype:
@@ -292,6 +305,9 @@ def selected_scores(
     stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
     plan = selected_plan(NF, A, D, K, De, Dh, bf16=bool(_is_bf16(spec)), topa=vals is None,
                          stages=stages, sms=_sm_count(xh.device))
+    if not _is_bf16(spec):
+        w = w._replace(**{f: blocked(getattr(w, f))
+                          for f in ("wfold", "w2", "ffn_up", "ffn_down", "out_proj")})
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
     _launch("selected_scores", xh,
             [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
@@ -596,6 +612,9 @@ def _candidate_launch(spec: QincoSpec, x, xh, idx, book, w: _ChainWeights, pack_
     (NF, A) output."""
     De, Dh, Wc, _ = _chain_dims(spec, w)
     NF, A = idx.shape
+    if not _is_bf16(spec):
+        w = w._replace(**{f: blocked(getattr(w, f)) for f in ("in_proj", "concat_w", "concat_w2",
+                                                              "ffn_up", "ffn_down", "out_proj")})
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
     _launch("candidate_scores", xh,
             [x.contiguous(), xh.contiguous(), idx.to(torch.int32).contiguous(), book,
@@ -692,6 +711,18 @@ def select_rebuild(
     return xhat, codes, parents
 
 
+def blocked(w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A weight ``(..., kin, nout)`` in the f32 kernels' blocked layout
+    ``(..., passes, kin, 128)``, the columns past nout zero (f32::Stage):
+    every 128-column pass over any run of rows is contiguous, one bulk copy
+    for the kernel's weight ring."""
+    if w is None:
+        return None
+    pad = -w.shape[-1] % _F32_PASS
+    b = F.pad(w, (0, pad)).unflatten(-1, (-1, _F32_PASS))  # (..., kin, passes, 128)
+    return b.transpose(-3, -2).contiguous()
+
+
 def pad_rank(w: _ChainWeights) -> _ChainWeights:
     """The chain weights with the low-rank factor's rank padded with zeros
     to a multiple of 16, the tensor cores' tile: the zero columns of
@@ -707,22 +738,24 @@ def pad_rank(w: _ChainWeights) -> _ChainWeights:
 # ---------------------------------------------------------------------------
 # Launch plans of the four kernels
 #
-# f32: the CUDA-core kernels, one block per 32 beam rows (B2, B4), 256
-# (row, slot) pairs (B5) or 8 vectors (B3), the largest MLP tile whose
-# shared memory fits.  bf16: the tensor-core kernels, one block per SM
-# walking the work items; a work item is R beam rows (or V vectors), the
-# most (up to 32 rows, or a tile's worth of vectors) that still leaves
-# _SMS items, so that every SM has work; the MLP tile is the largest of
-# _MMA_TILES whose shared memory fits, then R (or V) shrinks until it
-# fits.  The byte counts are those of SelectedLayout, FusedLayout,
-# CandidateLayout and RebuildLayout in the .cu files.
+# bf16: the tensor-core kernels, one block per SM walking the work items;
+# a work item is R beam rows (or V vectors), the most (up to 32 rows, or a
+# tile's worth of vectors) that still leaves _SMS items, so that every SM
+# has work; the MLP tile is the largest of _MMA_TILES whose shared memory
+# fits, then R (or V) shrinks until it fits.  f32, B2' and B5: the same
+# walk over work items of R rows with the register-tiled f32 kernels, the
+# tile the largest of _F32_TILES that fits.  f32, B4 and B3: the CUDA-core
+# kernels of the first port, one block per 32 beam rows (B4) or 8 vectors
+# (B3), the largest MLP tile whose shared memory fits.  The byte counts are
+# those of SelectedLayout, SelectedF32Layout, FusedLayout, CandidateLayout,
+# CandidateF32Layout and RebuildLayout in the .cu files.
 # ---------------------------------------------------------------------------
 
 
 class LaunchPlan(NamedTuple):
     tm: int  # MLP row tile: (row, slot) or (vector, beam) pairs
-    per_item: int  # beam rows (B2, B4, bf16 B5), vectors (B3) or pairs (f32 B5) per
-    #                block (f32) or work item (bf16)
+    per_item: int  # beam rows (B2, B4, B5) or vectors (B3) per work item, or per
+    #                block (the f32 kernels of B3 and B4)
     smem: int  # dynamic shared memory of a block, bytes
     items: int  # work items
     blocks: int  # blocks launched
@@ -757,20 +790,57 @@ def _check_mma(stages: int, **dims: int) -> None:
                          f"stream at most {_MMA_STAGES}")
 
 
-def _mma_plan(name: str, n: int, most, smem_of, sms: int, dims: str) -> LaunchPlan:
-    """The tensor-core plan for ``n`` rows (or vectors): for each tile of
-    _MMA_TILES, largest first, ``most(tm)`` rows a work item (fewer when
-    that leaves fewer than _SMS items), halved until ``smem_of(rows, tm)``
-    fits; raises when nothing fits."""
-    for tm in _MMA_TILES:
+def _item_plan(name: str, n: int, most, smem_of, sms: int, dims: str,
+               tiles=_MMA_TILES, mma: bool = True) -> LaunchPlan:
+    """The plan of a persistent kernel for ``n`` rows (or vectors): for
+    each tile of ``tiles``, largest first, ``most(tm)`` rows a work item
+    (fewer when that leaves fewer than _SMS items), halved until
+    ``smem_of(rows, tm)`` fits; raises when nothing fits.  One block per SM,
+    or per item when there are fewer."""
+    for tm in tiles:
         per = _per_item(n, most(tm))
         while per:
             smem = smem_of(per, tm)
             if smem <= _SMEM_LIMIT:
                 items = -(-n // per)
-                return LaunchPlan(tm, per, smem, items, min(items, sms), True)
+                return LaunchPlan(tm, per, smem, items, min(items, sms), mma)
             per //= 2
     raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory ({dims})")
+
+
+def _f32_ld(width: int) -> int:
+    """Row stride (floats) of an f32 activation buffer: f32::ld_of."""
+    return width + 4
+
+
+def _f32_ring(tm: int) -> int:
+    """Bytes of the f32 weight ring for a tm-row tile (f32::ring_bytes): the
+    slabs, and below 64 rows the exchange buffer of the split sums."""
+    return _F32_RING_BYTES + (4 * tm * 128 if tm < 64 else 0)
+
+
+def _check_f32(stages: int, **dims: int) -> None:
+    _check_widths(**dims)
+    if stages > _F32_STAGES:
+        raise ValueError(f"the step MLP has {stages} products; the f32 kernels stream at "
+                         f"most {_F32_STAGES}")
+
+
+def _selected_f32_smem(R, tm, A, D, K, De, Dh, topa) -> int:
+    head = (_F32_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A)
+            + 4 * tm * _F32_SLOTS)  # r, ccb, top-A values, the distance partials
+    phase0 = 4 * tm * _f32_ld(D)  # xh, the condition product's tile
+    substep = 4 * K * (R + 1) if topa else 0
+    tiles = 4 * tm * (_f32_ld(D) + _f32_ld(De) + _f32_ld(Dh))  # cand, h, FFN hidden
+    return head + _a16(max(phase0, substep, tiles)) + _f32_ring(tm)
+
+
+def _candidate_f32_smem(R, tm, A, D, De, Dh, Wc, in_proj, low_rank) -> int:
+    head = (_F32_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * Wc) + _a16(4 * R * A)
+            + 4 * tm * _F32_SLOTS + 4 * R * _f32_ld(D))  # x, cc, ids, partials, xh
+    h0_lr = 4 * tm * ((_f32_ld(De) if in_proj else 0) + (_f32_ld(Wc) if low_rank else 0))
+    tiles = 4 * tm * (_f32_ld(D) + _f32_ld(De)) + _a16(max(h0_lr, 4 * tm * _f32_ld(Dh)))
+    return head + tiles + _f32_ring(tm)
 
 
 def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa) -> int:
@@ -788,18 +858,12 @@ def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bo
     slots (``stages``: the step MLP's products, the condition product
     included); raises when no tile fits a block's shared memory."""
     if not bf16:
-        _check_widths(D=D, De=De, Dh=Dh)
-        R = _ROWS
-
-        def smem(tm):  # r, ccb, top-A values, then the union of the phases' buffers
-            return 4 * (R * D + R * De + R * A
-                        + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D))))
-
-        tm = _pick_tile(smem)
-        blocks = -(-NF // R)
-        return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
+        _check_f32(stages, D=D, De=De, Dh=Dh)
+        return _item_plan("selected_scores", NF, lambda tm: _ROWS,
+                          lambda R, tm: _selected_f32_smem(R, tm, A, D, K, De, Dh, topa), sms,
+                          f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}", _F32_TILES, mma=False)
     _check_mma(stages, D=D, De=De, Dh=Dh)
-    return _mma_plan("selected_scores", NF, lambda tm: _ROWS,
+    return _item_plan("selected_scores", NF, lambda tm: _ROWS,
                      lambda R, tm: _selected_mma_smem(R, tm, A, D, K, De, Dh, topa), sms,
                      f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}")
 
@@ -847,7 +911,7 @@ def fused_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, Wc: int, *, bf
         blocks = -(-NF // R)
         return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
     _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
-    return _mma_plan("fused_substep_scores", NF, lambda tm: _ROWS,
+    return _item_plan("fused_substep_scores", NF, lambda tm: _ROWS,
                      lambda R, tm: _fused_mma_smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj),
                      sms, f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}, {layout}")
 
@@ -867,17 +931,13 @@ def candidate_plan(NF: int, A: int, D: int, De: int, Dh: int, Wc: int, *, bf16: 
     ``stages``: the step MLP's products, the per-row condition product
     included); raises when no tile fits a block's shared memory."""
     if not bf16:
-        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
-        lr = Wc if low_rank else 0
-
-        def smem(tm):  # cand, cond, h, the low-rank scratch, then [h0 | cond] / hidden / x − cand_abs
-            return 4 * tm * (2 * D + De + lr + max(De + D, Dh, D))
-
-        tm = _pick_tile(smem)
-        blocks = -(-NF * A // _PAIRS)
-        return LaunchPlan(tm, _PAIRS, smem(tm), blocks, blocks, False)
+        _check_f32(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+        return _item_plan("candidate_scores", NF, lambda tm: _ROWS,
+                          lambda R, tm: _candidate_f32_smem(R, tm, A, D, De, Dh, Wc, in_proj,
+                                                            low_rank),
+                          sms, f"D={D}, De={De}, Dh={Dh}, Wc={Wc}, A={A}", _F32_TILES, mma=False)
     _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
-    return _mma_plan("candidate_scores", NF, lambda tm: _ROWS,
+    return _item_plan("candidate_scores", NF, lambda tm: _ROWS,
                      lambda R, tm: _candidate_mma_smem(R, tm, A, D, De, Dh, Wc, in_proj,
                                                        low_rank),
                      sms, f"D={D}, De={De}, Dh={Dh}, Wc={Wc}, A={A}")
@@ -908,7 +968,7 @@ def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, 
         blocks = -(-N // V)
         return LaunchPlan(tm, V, smem(tm), blocks, blocks, False)
     _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
-    return _mma_plan("select_rebuild", N, lambda tm: max(1, tm // F_out),
+    return _item_plan("select_rebuild", N, lambda tm: max(1, tm // F_out),
                      lambda V, tm: _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank),
                      sms, f"D={D}, De={De}, Dh={Dh}, C={C}, F_out={F_out}")
 

@@ -2,12 +2,13 @@
 selected scores (in-kernel top-A and external vals, lean and folded
 tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
-with a low-rank factor, unpacked at K = 1024); and the bf16 tensor-core
-kernels with a ragged last work item.  Under bf16 every kernel is its
-tensor-core route.  Then the determinism of the segment sum, k-means and
-train steps on the card (same bits on every run), and the search
-pipeline's device ops (the coarse probe, the pairwise decoder) against
-the CPU.
+with a low-rank factor, unpacked at K = 1024); the bf16 tensor-core
+kernels and the f32 kernels of selected and candidate scores with a
+ragged last work item, and the f32 kernels' repeatability.  Under bf16
+every kernel is its tensor-core route.  Then the determinism of the
+segment sum, k-means and train steps on the card (same bits on every
+run), and the search pipeline's device ops (the coarse probe, the
+pairwise decoder) against the CPU.
 
 Every case here needs a CUDA device and skips without one.  On a machine
 with a card (JAX is not needed):
@@ -166,6 +167,15 @@ def test_fused_substep_kernel_matches_plain(cuda, layout, case, dtype):
     _check_scores(got, kernels.fused_substep_scores_plain(spec, x, xh, p, n_codes), dtype)
 
 
+def _external_vals(spec, p, x, xh, F_in, n_codes):
+    """The packed exact top-n_codes of the f32 substep distances."""
+    r = x.repeat_interleave(F_in, 0) - xh
+    sub = p.sub_codebook
+    ids = torch.arange(spec.K, device=x.device)[None, :]
+    packed = kernels.pack_ids_f32((sub * sub).sum(1) - 2.0 * (r @ sub.T), ids)
+    return torch.sort(packed, dim=1, stable=True).values[:, :n_codes].contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -174,11 +184,7 @@ def test_selected_scores_external_vals_kernel_matches_plain(cuda, table, case, d
     widths, F_in, n_codes = CASES[case]
     spec, p = _step(widths, dtype, seed=7, device=cuda, fast=table == "lean")
     x, xh = _inputs(spec, F_in, N=70, seed=8, device=cuda)
-    r = x.repeat_interleave(F_in, 0) - xh
-    sub = p.sub_codebook
-    ids = torch.arange(spec.K, device=cuda)[None, :]
-    packed = kernels.pack_ids_f32((sub * sub).sum(1) - 2.0 * (r @ sub.T), ids)
-    vals = torch.sort(packed, dim=1, stable=True).values[:, :n_codes].contiguous()
+    vals = _external_vals(spec, p, x, xh, F_in, n_codes)
     before = kernels.LAUNCHES["selected_scores"]
     got = kernels.selected_scores(spec, x, xh, p, n_codes, vals=vals)
     torch.cuda.synchronize()
@@ -309,6 +315,75 @@ def test_bf16_candidate_ragged_last_work_item(cuda, kind, case):
         assert torch.equal(kernels.unpack_ids(got), idx)
         got, want = _unpacked(got), _unpacked(want)
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-2, atol=1e-4)
+
+
+# The f32 routes of B2' and B5 (the register-tiled kernels) at N = 1029
+# vectors, with the limits of the f32 cases above: at the IVF first step
+# (4 rows an item) the last work item holds one row, 32 of its 128 pairs,
+# so its second 64-pair tile is empty; at a normal step the rows fill
+# their items.
+F32_CANDIDATES = {**CANDIDATES, "packed_rank64": dict(concat_rank=64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("route", ["in_kernel_top_a", "external_vals"])
+def test_f32_selected_scores_ragged_last_work_item(cuda, route, case):
+    widths, F_in, n_codes = CASES[case]
+    external = route == "external_vals"
+    spec, p = _step(widths, "float32", seed=22, device=cuda, fast=not external)
+    x, xh = _inputs(spec, F_in, N=1029, seed=23, device=cuda)
+    vals = _external_vals(spec, p, x, xh, F_in, n_codes) if external else None
+    before = kernels.LAUNCHES["selected_scores"]
+    got = kernels.selected_scores(spec, x, xh, p, n_codes, vals=vals)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selected_scores"] == before + 1
+    _check_scores(got, kernels.selected_scores_plain(spec, x, xh, p, n_codes, vals=vals),
+                  "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("kind", sorted(F32_CANDIDATES))
+def test_f32_candidate_ragged_last_work_item(cuda, kind, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "float32", seed=24, device=cuda, **F32_CANDIDATES[kind])
+    x, xh = _inputs(spec, F_in, N=1029, seed=25, device=cuda)
+    x_f = x.repeat_interleave(F_in, 0)
+    g = torch.Generator().manual_seed(26)
+    idx = torch.randint(0, spec.K, xh.shape[:1] + (n_codes,), generator=g).int().to(cuda)
+    pack = spec.K <= 256
+    before = kernels.LAUNCHES["candidate_scores"]
+    got = kernels.candidate_scores(spec, x_f, xh, idx, p, pack_ids=pack)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["candidate_scores"] == before + 1
+    want = kernels.candidate_scores_plain(spec, x_f, xh, idx, p, pack_ids=pack)
+    if pack:
+        assert torch.equal(kernels.unpack_ids(got), idx)
+        got, want = _unpacked(got), _unpacked(want)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["S", "M"])
+def test_f32_kernels_repeat_bit_for_bit(cuda, case):
+    """The f32 kernels of B2' (both routes) and B5 sum each output in one
+    fixed order: two launches on the same inputs give the same bits."""
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "float32", seed=27, device=cuda)
+    x, xh = _inputs(spec, F_in, N=300, seed=28, device=cuda)
+    vals = _external_vals(spec, p, x, xh, F_in, n_codes)
+    for v in (None, vals):
+        a = kernels.selected_scores(spec, x, xh, p, n_codes, vals=v)
+        b = kernels.selected_scores(spec, x, xh, p, n_codes, vals=v)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    spec, p = _step(widths, "float32", seed=29, device=cuda, K=1024)
+    idx = torch.randint(0, 1024, xh.shape[:1] + (n_codes,),
+                        generator=torch.Generator().manual_seed(30)).int().to(cuda)
+    x_f = x.repeat_interleave(F_in, 0)
+    a = kernels.candidate_scores(spec, x_f, xh, idx, p)
+    b = kernels.candidate_scores(spec, x_f, xh, idx, p)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -16,6 +16,10 @@ rows) and at the IVF first step (F_in = 1, A = 32):
 - the work items cover the rows (or vectors) exactly once;
 - where no tile fits, or a width is not a multiple of the mma tile, the
   plan raises: there is no fallback to another kernel.
+
+Under float32, B2' and B5 are the register-tiled f32 kernels (one block
+per SM over work items, like the bf16 ones, a 64-pair tile at qinco2-S
+and a 32-pair tile at -M and -L); B3 and B4 keep their CUDA-core kernels.
 """
 
 import numpy as np
@@ -104,15 +108,17 @@ def test_plans_at_the_ivf_first_step_split_rows_finer():
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_f32_plans_are_the_cuda_core_kernels(preset):
-    """compute_dtype=float32 keeps the CUDA-core kernels: 32 beam rows or
-    8 vectors a block, the largest MLP tile of 64 / 32 / 16 rows that fits."""
+    """compute_dtype=float32: B2' is the register-tiled f32 kernel, one
+    block per SM over work items of up to 32 beam rows, a 64-pair tile at
+    the qinco2-S widths and a 32-pair tile at the qinco2-M and -L widths
+    (where a 64-pair tile of f32 activations does not fit beside the weight
+    ring); B3 keeps its CUDA-core kernel, 8 vectors a block."""
     spec = _spec(preset)
-    D, K, De, Dh, A = spec.D, spec.K, spec.De, spec.dh, spec.A
-    sel = _selected_plan(spec, 32, A, bf16=False)
-    want = next(tm for tm in (64, 32, 16) if 4 * (32 * D + 32 * De + 32 * A + max(
-        32 * D + K * 33, tm * (D + De + max(Dh, D)))) <= SMEM_LIMIT)
-    assert (sel.mma, sel.tm, sel.per_item, sel.blocks) == (False, want, 32, N * 32 // 32)
-    reb = _rebuild_plan(spec, 32, A, bf16=False)
+    sel = _selected_plan(spec, 32, spec.A, bf16=False)
+    want = (64, 32) if preset == "qinco2-S" else (32, 16)
+    assert (sel.mma, sel.tm, sel.per_item) == (False, *want)
+    _check_f32(sel, N * 32)
+    reb = _rebuild_plan(spec, 32, spec.A, bf16=False)
     assert (reb.mma, reb.per_item, reb.blocks) == (False, 8, N // 8)
     assert reb.smem <= SMEM_LIMIT
 
@@ -240,9 +246,11 @@ def test_scoring_plans_at_the_main_steps():
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_f32_scoring_plans_are_the_cuda_core_kernels(preset):
-    """compute_dtype=float32 keeps the CUDA-core kernels: B4 32 beam rows a
-    block, B5 256 (row, slot) pairs a block, the largest MLP tile of 64 /
-    32 / 16 rows that fits."""
+    """compute_dtype=float32: B4 keeps its CUDA-core kernel (32 beam rows a
+    block, the largest MLP tile of 64 / 32 / 16 rows that fits); B5 is the
+    register-tiled f32 kernel, one block per SM over work items of up to
+    32 rows, a 64-pair tile at the qinco2-S widths (16 rows an item beside
+    it), a 32-pair tile at the qinco2-M and -L widths."""
     spec = _spec(preset)
     D, K, De, Dh, A = spec.D, spec.K, spec.De, spec.dh, spec.A
     fus = _fused_plan(spec, 32, A, "fold_up", bf16=False)
@@ -250,10 +258,89 @@ def test_f32_scoring_plans_are_the_cuda_core_kernels(preset):
         32 * D + K * 33, tm * (D + De + max(Dh, D, De)))) <= SMEM_LIMIT)
     assert (fus.mma, fus.tm, fus.per_item, fus.blocks) == (False, want, 32, N * 32 // 32)
     cand = _candidate_plan(spec, 32, A, "K1024", bf16=False)
-    want = next(tm for tm in (64, 32, 16)
-                if 4 * tm * (2 * D + De + max(De + D, Dh, D)) <= SMEM_LIMIT)
-    assert (cand.mma, cand.tm, cand.per_item, cand.blocks) == (False, want, 256,
-                                                               N * 32 * A // 256)
+    assert (cand.mma, cand.tm, cand.per_item) == (False, *((64, 16) if preset == "qinco2-S"
+                                                          else (32, 16)))
+    _check_f32(cand, N * 32)
+
+
+def _check_f32(plan, n):
+    """An f32 plan of B2' or B5: one block per SM (or per item when there
+    are fewer), at least one work item per SM, the items covering the rows
+    once, the shared memory within a block's."""
+    assert not plan.mma
+    assert plan.tm in (64, 32)
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.items >= SMS, f"{plan.items} work items for {SMS} SMs"
+    assert plan.blocks == min(plan.items, SMS)
+    assert plan.per_item & (plan.per_item - 1) == 0 and plan.per_item <= 32
+    assert plan.per_item * plan.items >= n > plan.per_item * (plan.items - 1)
+
+
+@pytest.mark.parametrize("topa", [True, False], ids=["in-kernel top-A", "external vals"])
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_f32_selected_plan_fits(preset, step, topa):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _selected_plan(spec, F_in, A, bf16=False, topa=topa)
+    _check_f32(plan, N * F_in)
+    assert plan.tm == (64 if preset == "qinco2-S" else 32)
+
+
+@pytest.mark.parametrize("kind", sorted(CANDIDATE_KINDS))
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_f32_candidate_plan_fits(preset, step, kind):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _candidate_plan(spec, F_in, A, kind, bf16=False)
+    _check_f32(plan, N * F_in)
+    assert plan.tm == (64 if preset == "qinco2-S" else 32)
+
+
+def test_f32_plans_at_the_main_steps():
+    """qinco2-S, f32: B2' takes 64-pair tiles at 32 rows a work item, 1024
+    items on 132 blocks; B5 at K = 1024 64-pair tiles at 16 rows, 2048
+    items; at the IVF first step both take 4 rows (128 pairs) an item."""
+    spec = _spec("qinco2-S")
+    plan = _selected_plan(spec, 32, 16, bf16=False, topa=False)
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 32, 1024, 132)
+    plan = _candidate_plan(spec, 32, 16, "K1024", bf16=False)
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 16, 2048, 132)
+    assert (_selected_plan(spec, 1, 32, bf16=False).per_item,
+            _candidate_plan(spec, 1, 32, "K1024", bf16=False).per_item) == (4, 4)
+
+
+@pytest.mark.parametrize("kernel", ["selected", "candidate"])
+@pytest.mark.parametrize("widths", [dict(De=2048, Dh=2048), dict(De=1024, Dh=4096)],
+                         ids=["De=Dh=2048", "Dh=4096"])
+def test_f32_plans_raise_where_no_tile_fits(widths, kernel):
+    De, Dh = widths["De"], widths["Dh"]
+    with pytest.raises(ValueError, match="no tile fits"):
+        if kernel == "selected":
+            kernels.selected_plan(N * 32, 16, 128, 256, De, Dh, bf16=False, topa=False, stages=6)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, De, Dh, De, bf16=False, in_proj=True,
+                                   low_rank=False, stages=8)
+
+
+@pytest.mark.parametrize("kernel", ["selected", "candidate"])
+def test_f32_plans_raise_on_bad_widths_and_too_many_products(kernel):
+    """Widths off the 4-wide loads, and more products than one weight
+    stream holds, are refused: there is no fallback to another kernel."""
+    with pytest.raises(ValueError, match="multiples of 4"):
+        if kernel == "selected":
+            kernels.selected_plan(N * 32, 16, 128, 256, 130, 256, bf16=False, topa=True, stages=6)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, 128, 256, 6, bf16=False, in_proj=False,
+                                   low_rank=True, stages=8)
+    with pytest.raises(ValueError, match="products"):
+        if kernel == "selected":
+            kernels.selected_plan(N * 32, 16, 128, 256, 128, 256, bf16=False, topa=True,
+                                  stages=65)
+        else:
+            kernels.candidate_plan(N * 32, 16, 128, 128, 256, 128, bf16=False, in_proj=False,
+                                   low_rank=False, stages=65)
 
 
 @pytest.mark.parametrize("kernel", ["fused", "candidate"])
