@@ -21,18 +21,21 @@
    - candidate scores at K=1024 (unpacked; also at the qinco2-M widths) and
      at K=256 with a low-rank concat factor (packed), and select-rebuild
      with that factor;
-   - the f32 routes of selected scores (external vals at the qinco2-S and
-     -M widths, the in-kernel top-A at qinco2-S with select-rebuild at f32
-     on its output) and of candidate scores (K=1024 at the qinco2-S and -M
-     widths, the low-rank factor at qinco2-S), whose ``design`` names the
-     register-tiled f32 stage.
+   - the f32 routes, whose ``design`` names the register-tiled f32 stage:
+     fused-substep scores in each table layout (fold_up, ``fold_up=false``,
+     the low-rank factor) at qinco2-S, at its IVF first step and at the
+     qinco2-M widths; select-rebuild at the qinco2-S and -M widths; selected
+     scores (external vals at the qinco2-S and -M widths, the in-kernel
+     top-A at qinco2-S with select-rebuild on its output) and candidate
+     scores (K=1024 at the qinco2-S and -M widths, the low-rank factor at
+     qinco2-S with select-rebuild on its output).
 4. Path phase at qinco2-S, random weights and data from ``--seed`` (the
    data: decodes of random codes plus noise of std ``NOISE``, or
    ``SPEED_NOISE`` for the speed profile), through ``encode_chunked``
    (batch 1024) over ``--n`` vectors, then ``decode``: the parity and the
-   speed profile without and with the IVF step 0 (ivf_K = 2^20),
-   ``pallas=true`` (f32) at K=256 and at K=1024, and the parity profile at
-   K=1024.  Each checks
+   speed profile without and with the IVF step 0 (ivf_K = 2^20), the speed
+   profile at f32, ``pallas=true`` (f32) at K=256 and at K=1024, and the
+   parity profile at K=1024.  Each checks
    the kernels' launch counts exactly (one launch of its scoring kernel
    and, with packed ids, of select-rebuild per MLP step and chunk, none of
    the others), encode xhat against decode(codes), and its MSE and codes
@@ -40,7 +43,9 @@
    encode vectors per second (one ``encode_chunked`` over all vectors),
    decode vectors per second (the median of ``DECODE_WINDOWS`` windows of
    ``DECODE_REPS`` decodes of all of them), and the device time by kernel
-   of one encode chunk and of one decode (torch.profiler).
+   of one encode chunk and of one decode (torch.profiler); on the f32
+   paths the scoring kernel's f32 route must lead that profile, with
+   select-rebuild's among its top kernels.
 5. Train phase at qinco2-S (parity profile): ``python -m qinco_torch``'s
    ``main`` trains on ``TRAIN_ROWS`` + ``TRAIN_VAL`` rows of the smoke's
    data (noise ``NOISE``) written to an .npy: the RQ bootstrap on the card,
@@ -289,20 +294,23 @@ def batch_ms(fn, calls: int = 10, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-# The kernels whose f32 route is the register-tiled stage of csrc/f32_tile.cuh.
-F32_TILED = ("selected_scores", "candidate_scores")
+# kernel -> the name of its f32 route, the register-tiled stage of
+# csrc/f32_tile.cuh (what the profiles of the f32 paths show).
+F32_TILED = {
+    "selected_scores": "selected_scores_f32_kernel",
+    "select_rebuild": "select_rebuild_f32_kernel",
+    "fused_substep_scores": "fused_substep_f32_kernel",
+    "candidate_scores": "candidate_scores_f32_kernel",
+}
 
 
 def design(name: str, dtype: str) -> str:
-    """How a kernel computes its MLP products: every kernel runs them on
-    the tensor cores under bf16, and in f32 on the CUDA cores under f32:
-    B2' and B5 through the shared-memory weight ring and register tiles,
-    B3 and B4 in their first versions."""
+    """How a kernel computes its MLP products: on the tensor cores under
+    bf16, in f32 on the CUDA cores under f32, through the shared-memory
+    weight ring and register tiles."""
     if dtype == "bfloat16":
         return "tensor cores (mma.sync)"
-    if name in F32_TILED:
-        return "cuda cores f32 (bulk-copy weight ring, register-tiled FFMA)"
-    return "cuda cores f32 (first version)"
+    return f"cuda cores f32 (bulk-copy weight ring, register-tiled FFMA: {F32_TILED[name]})"
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -536,6 +544,13 @@ def check_selected(label, spec, N, F_in, A, seed, device, external=False) -> dic
     return res
 
 
+def check_rebuild_alone(label, spec, N, F_in, A, seed, device) -> dict:
+    """Select-rebuild on the packed scores of the plain selected scores."""
+    p, x, xh = step_inputs(spec, N, F_in, seed, device)
+    dists = kernels.selected_scores_plain(spec, x, xh, p, A).reshape(N, F_in * A)
+    return check_rebuild(label, spec, p, dists, xh, A, F_in)
+
+
 def check_fused(label, spec, N, F_in, A, seed, device) -> dict:
     esize = 2 if spec.compute_dtype == "bfloat16" else 4
     p, x, xh = step_inputs(spec, N, F_in, seed, device)
@@ -660,6 +675,11 @@ def run_path(label, spec, params, x_raw, batch, device, scorer, noise, mse_bound
     # where one chunk's and one decode's time goes (the counts are read above already)
     chunk = x_raw[:batch]
     breakdown = device_breakdown(lambda: encode_chunked(params, spec, chunk, batch=batch))
+    if spec.compute_dtype == "float32":  # the f32 kernels lead the chunk's profile
+        names = [name for name, _, _ in breakdown["top"]]
+        check(F32_TILED[scorer] in names[0], f"{label}: top kernel {names[0]}")
+        check(spec.K > 256 or any(F32_TILED["select_rebuild"] in n for n in names),
+              f"{label}: no {F32_TILED['select_rebuild']} in the profile's top {names}")
     decode_breakdown = device_breakdown(lambda: decode_raw(params, spec, codes_d))
     res = dict(path=label, n=n, batch=batch, noise=noise, launches=launches, breakdown=breakdown,
                decode_breakdown=decode_breakdown,
@@ -1624,11 +1644,24 @@ def main() -> None:
                     N, s.B, s.A, seed, device)
     check_candidate("qinco2-M widths K=1024", spec_of("qinco2-M", "K=1024"), N, m.B, m.A, seed,
                     device)
-    # the f32 routes: B4's CUDA-core kernel; B2' and B5 on the register-tiled
-    # stage at the qinco2-S and -M widths, B5 with a low-rank factor, B2'
-    # with the in-kernel top-A (and B3 at f32 on its output)
-    check_fused("qinco2-S speed f32", speed_s.with_(compute_dtype="float32"), N, s.B, s.A, seed,
+    # the f32 routes, all on the register-tiled stage: B4 in each table
+    # layout (and at the IVF first step and the qinco2-M widths), B3 at the
+    # qinco2-S and -M widths, B2' and B5 at the qinco2-S and -M widths, B5
+    # with a low-rank factor (and B3 with it, on its output), B2' with the
+    # in-kernel top-A (and B3 on its output)
+    speed_f32 = speed_s.with_(compute_dtype="float32")
+    check_fused("qinco2-S speed f32", speed_f32, N, s.B, s.A, seed, device)
+    check_fused("qinco2-S speed f32 fold_up=false", speed_f32.with_(fold_up=False), N, s.B, s.A,
+                seed, device)
+    check_fused(f"qinco2-S speed f32 concat_rank={CONCAT_RANK}",
+                speed_f32.with_(concat_rank=CONCAT_RANK), N, s.B, s.A, seed, device)
+    check_fused("qinco2-S speed f32 IVF first step", speed_f32, N, 1, max(s.B, s.A), seed, device)
+    check_fused("qinco2-M speed f32", speed_m.with_(compute_dtype="float32"), N, m.B, m.A, seed,
                 device)
+    check_rebuild_alone("qinco2-S f32", s.with_(compute_dtype="float32"), N, s.B, s.A, seed,
+                        device)
+    check_rebuild_alone("qinco2-M f32", m.with_(compute_dtype="float32"), N, m.B, m.A, seed,
+                        device)
     check_candidate("qinco2-S widths K=1024 f32",
                     spec_of("qinco2-S", "K=1024").with_(compute_dtype="float32"), N, s.B, s.A,
                     seed, device)
@@ -1653,6 +1686,8 @@ def main() -> None:
          1.01, 0.9),
         ("qinco2-S speed", speed_s, "fused_substep_scores", SPEED_NOISE, 1.05, None),
         ("qinco2-S speed IVF 2^20", spec_of("qinco2-S", "ivf_in_use=true", profile="speed"),
+         "fused_substep_scores", SPEED_NOISE, 1.05, None),
+        ("qinco2-S speed f32", spec_of("qinco2-S", "compute_dtype=float32", profile="speed"),
          "fused_substep_scores", SPEED_NOISE, 1.05, None),
         ("qinco2-S pallas=true", spec_of("qinco2-S", "pallas=true", profile=None),
          "selected_scores", NOISE, 1.01, 0.95),

@@ -114,6 +114,14 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// Order this thread's earlier shared-memory accesses (the generic proxy's)
+// before later bulk copies into the same bytes (the async proxy's): every
+// thread that touched a buffer runs it before the barrier after which one
+// thread refills the buffer by bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A block: kThreads consumer threads (8 warps, two warpgroups) that run
 // the products, and a producer warpgroup, whose first warp streams the
 // weights.  The producers hand their registers to the consumers

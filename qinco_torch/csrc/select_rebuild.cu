@@ -22,20 +22,30 @@
 //
 // What the design does about it.  Both routes select with one warp per
 // vector (a lane scan plus a warp reduction on (value, position) per
-// round) and gather with plain indexed loads; nothing but the outputs is
-// written.  bf16: select_rebuild_tc_kernel, persistent blocks over work
-// items of V vectors (the wrapper picks V so that a launch has enough
-// items to fill the card), the rebuild MLP on the tensor cores (tc.cuh)
-// over tiles of TM (vector, beam) pairs, activations as bf16 in shared
-// memory, weights streamed through a cp.async ring; the f32 codeword and
-// parent row of the final sum are read again from device memory (L2).
-// f32: select_rebuild_kernel, 8 vectors per block, the chain on the CUDA
-// cores (mlp_chain_tile, shared with the candidate-scores kernel).
-#include "tc.cuh"
+// round); nothing but the outputs is written.  bf16:
+// select_rebuild_tc_kernel, persistent blocks over work items of V vectors
+// (the wrapper picks V so that a launch has enough items to fill the
+// card), gathers by plain indexed loads, the rebuild MLP on the tensor
+// cores (tc.cuh) over tiles of TM (vector, beam) pairs, activations as
+// bf16 in shared memory, weights streamed through a cp.async ring; the
+// f32 codeword and parent row of the final sum are read again from device
+// memory (L2).
+// f32: select_rebuild_f32_kernel, the same walk over work items with the
+// rebuild MLP in IEEE f32 FFMA on the CUDA cores (f32_tile.cuh: TF32 would
+// be a different result), activations f32 in shared memory, the weights
+// (in the blocked layout) streamed by bulk copies from a producer warp.
+// The selection runs one work item ahead on the producer warpgroup's other
+// three warps, so the math warps never wait for it.  Per tile the f32
+// codeword and parent row go into one [cand | cond] buffer, the concat
+// layer's A, by bulk copies that complete on an mbarrier, and the final
+// sum reads them again from L2 and writes xhat in float4 stores from the
+// last product's epilogue.  A 64-pair tile (two vectors an item) at the
+// qinco2-S widths, a 32-pair tile (one vector) at the qinco2-M and -L
+// widths, where the De + D wide buffer of 64 rows does not fit beside the
+// weight ring.
+#include "f32_tile.cuh"
 
 namespace qt {
-
-constexpr int kVecs = 8;  // vectors per block of the f32 kernel, one selection warp each
 
 struct RebuildArgs {
   const float* dists;     // (N, C) packed
@@ -46,18 +56,20 @@ struct RebuildArgs {
   int* codes;             // (N, F_out)
   int* parents;           // (N, F_out)
   int N, C, A_eff, F_in, F_out, K, res;
-  int V;                  // vectors per work item (tensor-core kernel)
+  int V;                  // vectors per work item
 };
 
 // Exact top-F_out of the V vectors from v0 (n_vecs of them real) in d_s,
-// one warp a vector (a block of n_warps warps): (value, position) minimum
-// per round, remove only that position, so equal packed values both
-// survive and come out in position order.  Writes the codes and parents to
-// code_s / par_s and, for real vectors, to g.
+// one warp a vector (the calling warp, number `warp` of n_warps that share
+// the vectors): (value, position) minimum per round, remove only that
+// position, so equal packed values both survive and come out in position
+// order.  Writes the codes and parents to code_s / par_s and, for real
+// vectors, to g.
 __device__ __forceinline__ void select_beams(const RebuildArgs& g, float* d_s, int* code_s,
-                                             int* par_s, int V, int v0, int n_vecs, int n_warps) {
+                                             int* par_s, int V, int v0, int n_vecs, int warp,
+                                             int n_warps) {
   const int C = g.C, F_out = g.F_out;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int v = warp; v < V; v += n_warps) {
     float* row = d_s + v * C;
     for (int j = 0; j < F_out; ++j) {
@@ -90,54 +102,6 @@ __device__ __forceinline__ void select_beams(const RebuildArgs& g, float* d_s, i
   }
 }
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(kThreads, 1) select_rebuild_kernel(RebuildArgs g) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int V = kVecs;
-  const int C = g.C, F_out = g.F_out, D = g.w.D, De = g.w.De;
-  const int tid = threadIdx.x;
-  const int v0 = blockIdx.x * V;
-  const int n_vecs = min(V, g.N - v0);
-
-  float* d_s = smem;                                 // (V, C)
-  int* code_s = reinterpret_cast<int*>(d_s + V * C);  // (V, F_out)
-  int* par_s = code_s + V * F_out;                   // (V, F_out)
-  float* cand_s = reinterpret_cast<float*>(par_s + V * F_out);  // (TM, D) f32 codewords
-  float* cond_s = cand_s + TM * D;                   // (TM, D) f32 parent rows
-  float* h_s = cond_s + TM * D;                      // (TM, De)
-  float* lr_s = h_s + TM * De;                       // (TM, Wc) with the low-rank factor
-  float* cat_s = lr_s + (g.w.concat_w2 ? TM * g.w.Wc : 0);  // (TM, max(De + D, Dh, D))
-
-  for (int e = tid; e < V * C; e += kThreads)
-    d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
-  __syncthreads();
-  select_beams(g, d_s, code_s, par_s, V, v0, n_vecs, kWarps);
-  __syncthreads();
-
-  // ---- rebuild the (vector, beam) pairs, TM at a time; pair p = v * F_out + j
-  const int n_pairs = n_vecs * F_out;
-  float* xo = g.xhat + (size_t)v0 * F_out * D;
-  for (int p0 = 0; p0 < n_pairs; p0 += TM) {
-    for (int e = tid; e < TM * D; e += kThreads) {
-      const int t = e / D, c = e - t * D, p = p0 + t;
-      float cv = 0.f, hv = 0.f;
-      if (p < n_pairs) {
-        const int code = code_s[p];
-        if (code < g.K) cv = g.codebook[(size_t)code * D + c];
-        hv = g.xh[((size_t)(v0 + p / F_out) * g.F_in + par_s[p]) * D + c];
-      }
-      cand_s[e] = cv;
-      cond_s[e] = hv;
-    }
-    __syncthreads();
-    mlp_chain_tile<TM, BF>(g.w, cand_s, cond_s, h_s, lr_s, cat_s, g.res,
-                           [&](int t, int c, float v) {
-                             if (p0 + t < n_pairs) xo[(size_t)(p0 + t) * D + c] = v;
-                           });
-    __syncthreads();
-  }
-}
-
 // Shared-memory layout of the tensor-core kernel (byte offsets), the same
 // arithmetic as rebuild_plan in qinco_torch/ops/kernels.py:
 //   stage table | dists (V, C) f32 | codes, parents (V, F_out) int32 |
@@ -166,6 +130,191 @@ struct RebuildLayout {
 // Products in the tensor-core kernel's weight stream.
 __host__ __device__ inline int rebuild_stages(const ChainWeights& w) {
   return (w.in_proj ? 1 : 0) + 1 + (w.concat_w2 ? 1 : 0) + 2 * w.L + (w.out_proj ? 1 : 0);
+}
+
+// Shared-memory layout of the f32 kernel (byte offsets), the same
+// arithmetic as rebuild_plan in qinco_torch/ops/kernels.py:
+//   stage table | the mbarriers (48 bytes: the gather's, selected[2],
+//   consumed[2]) | two buffers of dists (V, C), codes and parents (V,
+//   F_out) int32 | cat
+//   [h0 | cond] (TM, ld De + D), later the FFN hidden (TM, ld Dh) | cand
+//   (TM, ld D) for in_proj, later h (TM, ld De) | the low-rank product
+//   (TM, ld Wc) | the weight ring (f32::ring_bytes).  All f32; ld w = w + 4.
+struct RebuildF32Layout {
+  unsigned bar, d, code, par, cat, h, lr, ring, total;
+  __host__ __device__ RebuildF32Layout(const RebuildArgs& g, int TM) {
+    using f32::ld_of;
+    using tc::align16;
+    const size_t V = g.V, T = TM, D = g.w.D, De = g.w.De, Dh = g.w.Dh;
+    const size_t cat_w = ld_of(De + D) > ld_of(Dh) ? ld_of(De + D) : ld_of(Dh);
+    bar = f32::kStageBytes;
+    d = bar + 48;
+    code = d + 2 * align16(4 * V * g.C);
+    par = code + 2 * align16(4 * V * g.F_out);
+    cat = par + 2 * align16(4 * V * g.F_out);
+    h = cat + 4 * T * cat_w;
+    lr = h + 4 * T * ld_of(De > D ? De : D);
+    ring = lr + (g.w.concat_w2 ? 4 * T * ld_of(g.w.Wc) : 0);
+    total = ring + f32::ring_bytes(TM);
+  }
+};
+
+// f32 route: the rebuild MLP in f32 FFMA on the CUDA cores (f32_tile.cuh).
+// A block walks the work items blockIdx.x, blockIdx.x + gridDim.x, ...: V
+// vectors each, their V·F_out pairs in tiles of TM; pair p = v * F_out + j.
+// The selection runs one item ahead on the producer warpgroup's three
+// other warps (kSelectors), into the other of two buffers: the consumers
+// wait for an item's codes and parents on selected[b] and hand the buffer
+// back on consumed[b] once they are done with it.
+constexpr int kSelectors = 3;
+
+template <int TM>
+__global__ void __launch_bounds__(f32::kBlock, 1) select_rebuild_f32_kernel(RebuildArgs g) {
+  using namespace f32;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ChainWeights& w = g.w;
+  const int C = g.C, F_out = g.F_out, D = w.D, De = w.De, Dh = w.Dh, Wc = w.Wc, L = w.L;
+  const int V = g.V, tid = threadIdx.x;
+  const bool low_rank = w.concat_w2 != nullptr, proj = w.out_proj != nullptr;
+  const RebuildF32Layout lay(g, TM);
+  float* d_buf = reinterpret_cast<float*>(sm + lay.d);    // 2 x (V, C)
+  int* code_buf = reinterpret_cast<int*>(sm + lay.code);  // 2 x (V, F_out)
+  int* par_buf = reinterpret_cast<int*>(sm + lay.par);    // 2 x (V, F_out)
+  const int d_stride = (lay.code - lay.d) / 8, s_stride = (lay.par - lay.code) / 8;  // ints
+  float* cat_s = reinterpret_cast<float*>(sm + lay.cat);  // (TM, ldc) [h0 | cond], then (TM, ldf)
+  float* h_s = reinterpret_cast<float*>(sm + lay.h);      // (TM, ldd) cand for in_proj, then h
+  float* lr_s = reinterpret_cast<float*>(sm + lay.lr);    // (TM, ldr) low-rank product
+  const int ldc = ld_of(De + D), ldh = ld_of(De > D ? De : D), ldf = ld_of(Dh), ldr = ld_of(Wc);
+  const uint32_t gather = tc::smem_addr(sm + lay.bar);  // the rows' bulk copies
+  const auto selected = [&](int b) { return gather + 8 + 8 * b; };
+  const auto consumed = [&](int b) { return gather + 24 + 8 * b; };
+  if (tid == 0) {
+    mbar_init(gather, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(selected(b), kSelectors);
+      mbar_init(consumed(b), kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // The weight stream, once per tile, every weight in the blocked layout:
+  // [in_proj], concat, [concat_w2], (U_l, D_l) x L, [out_proj].
+  Stage* stages = reinterpret_cast<Stage*>(sm);
+  if (tid == 0) {
+    const float* up = static_cast<const float*>(w.ffn_up);
+    const float* down = static_cast<const float*>(w.ffn_down);
+    int n = 0;
+    if (w.in_proj) stages[n++] = {static_cast<const float*>(w.in_proj), D, De, D * kPass};
+    stages[n++] = {static_cast<const float*>(w.concat_w), De + D, Wc, (De + D) * kPass};
+    if (low_rank) stages[n++] = {static_cast<const float*>(w.concat_w2), Wc, De, Wc * kPass};
+    for (int l = 0; l < L; ++l) {
+      stages[n++] = {up + l * blocked(De, Dh), De, Dh, De * kPass};
+      stages[n++] = {down + l * blocked(Dh, De), Dh, De, Dh * kPass};
+    }
+    if (proj) stages[n++] = {static_cast<const float*>(w.out_proj), De, D, De * kPass};
+  }
+  __syncthreads();
+  const int n_pairs = V * F_out, n_items = (g.N + V - 1) / V;
+  Ring ring;
+  ring.init(sm + lay.ring, stages, 0, rebuild_stages(w), (n_pairs + TM - 1) / TM, TM == 64);
+  if (tid >= kThreads) {  // the producer warpgroup
+    producer_regs();
+    const int items = (n_items - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    const int sw = (tid - kThreads) >> 5;  // its first warp streams the weights
+    if (sw == 0) {
+      ring.produce_all(items);
+      return;
+    }
+    // the selectors: item i into buffer i & 1, once the consumers are done
+    // with the item two before; each warp loads and selects its vectors
+    for (int i = 0; i < items; ++i) {
+      const int b = i & 1, v0 = (blockIdx.x + i * gridDim.x) * V, n_vecs = min(V, g.N - v0);
+      if (i >= 2) mbar_wait(consumed(b), ((i >> 1) - 1) & 1, 64);
+      float* d_s = d_buf + b * d_stride;
+      for (int v = sw - 1; v < V; v += kSelectors)
+        for (int c = tid & 31; c < C; c += 32)
+          d_s[v * C + c] = v < n_vecs ? g.dists[(size_t)(v0 + v) * C + c] : 0.f;
+      __syncwarp();
+      select_beams(g, d_s, code_buf + b * s_stride, par_buf + b * s_stride, V, v0, n_vecs, sw - 1,
+                   kSelectors);
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(selected(b));
+    }
+    return;
+  }
+  consumer_regs();
+  uint32_t gathers = 0;  // phases of the gather barrier so far
+
+  for (int i = 0, item = blockIdx.x; item < n_items; ++i, item += gridDim.x) {
+    const int v0 = item * V, n_vecs = min(V, g.N - v0), n_valid = n_vecs * F_out, b = i & 1;
+    const int* code_s = code_buf + b * s_stride;
+    const int* par_s = par_buf + b * s_stride;
+    float* xo = g.xhat + (size_t)v0 * F_out * D;
+    // xh row of pair p's parent
+    auto row_of = [&](int p) { return (size_t)(v0 + p / F_out) * g.F_in + par_s[p]; };
+    mbar_wait(selected(b), (i >> 1) & 1);  // the item's codes and parents are in
+
+    for (int p0 = 0; p0 < n_pairs; p0 += TM) {
+      const int rows = max(0, min(TM, n_valid - p0));
+      fence_proxy_async();  // the tile buffers' last generic accesses come before the copies
+      sync();  // codes and parents are in; the last tile's readers are done
+      // the f32 codeword and parent row by bulk copies (warp 0 issues
+      // them, everyone waits for the bytes): [cand | cond] into cat, or
+      // cand into h for in_proj; a code outside [0, K) gives zeros
+      float* cand_dst = w.in_proj ? h_s : cat_s;
+      const int ld_cand = w.in_proj ? ldh : ldc;
+      if (tid < 32) {
+        if (tid == 0) {
+          int n = 0;
+          for (int t = 0; t < rows; ++t) n += code_s[p0 + t] < g.K ? 2 : 1;
+          mbar_expect_tx(gather, 4u * D * n);
+        }
+        __syncwarp();
+        for (int t = tid; t < rows; t += 32) {
+          const int code = code_s[p0 + t];
+          if (code < g.K)
+            bulk_copy(tc::smem_addr(cand_dst + t * ld_cand), g.codebook + (size_t)code * D, 4 * D,
+                      gather);
+          else
+            for (int c = 0; c < D; c += 4) st4(cand_dst + t * ld_cand + c, make_float4(0, 0, 0, 0));
+          bulk_copy(tc::smem_addr(cat_s + t * ldc + De), g.xh + row_of(p0 + t) * D, 4 * D, gather);
+        }
+      }
+      mbar_wait(gather, gathers++ & 1);
+
+      // xhat = (out + cand) + cond, from the f32 codeword and parent row in
+      // device memory (L2); float4 stores
+      auto fin = [&](int t, int c, float4 o) {
+        const int p = p0 + t, code = code_s[p];
+        if (g.res && code < g.K) o = add4(o, ld4(g.codebook + (size_t)code * D + c));
+        st4(xo + (size_t)p * D + c, add4(o, ld4(g.xh + row_of(p) * D + c)));
+      };
+      auto h_out = [&](int t, int c, float4 o) {
+        if (!proj) fin(t, c, o);
+      };
+      // h = h0 + (concat + b), written to h; out = h when nothing follows
+      auto concat_out = [&](int t, int c, float4 v) {
+        const float4 o = add4(ld4(cat_s + t * ldc + c), add4(v, ld4(w.concat_b + c)));
+        st4(h_s + t * ldh + c, o);
+        if (!proj && L == 0) fin(t, c, o);
+      };
+      // h0 = cand·P into cat[:, :De]
+      if (w.in_proj)
+        stage<TM>(ring, h_s, ldh, D, De, rows,
+                  [&](int t, int c, float4 v) { st4(cat_s + t * ldc + c, v); });
+      if (low_rank) {  // lr = [h0 | cond]·W;  h = h0 + (lr·W2 + b)
+        stage<TM>(ring, cat_s, ldc, De + D, Wc, rows,
+                  [&](int t, int c, float4 v) { st4(lr_s + t * ldr + c, v); });
+        stage<TM>(ring, lr_s, ldr, Wc, De, rows, concat_out);
+      } else {  // h = h0 + ([h0 | cond]·W + b)
+        stage<TM>(ring, cat_s, ldc, De + D, De, rows, concat_out);
+      }
+      ffn<TM>(ring, h_s, ldh, cat_s, ldf, L, De, Dh, rows, h_out);
+      if (proj) stage<TM>(ring, h_s, ldh, De, D, rows, fin);
+    }
+    __syncwarp();  // the warp's reads of the item's codes and parents are done
+    if ((tid & 31) == 0) mbar_arrive(consumed(b));
+  }
 }
 
 // bf16 route: the rebuild MLP on the tensor cores.  A block walks the
@@ -220,7 +369,7 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) select_rebuild_tc_kernel(Re
     for (int e = tid; e < V * C; e += kTcThreads)
       d_s[e] = e / C < n_vecs ? g.dists[(size_t)v0 * C + e] : 0.f;
     __syncthreads();
-    select_beams(g, d_s, code_s, par_s, V, v0, n_vecs, kTcWarps);
+    select_beams(g, d_s, code_s, par_s, V, v0, n_vecs, tid >> 5, kTcWarps);
 
     for (int p0 = 0; p0 < n_pairs; p0 += TM) {
       const int rows = max(0, min(TM, n_valid - p0));
@@ -336,11 +485,11 @@ extern "C" int qt_select_rebuild(const float* dists, const float* xh, const floa
     return static_cast<int>(tm == 128 ? tc::launch_tc(select_rebuild_tc_kernel<4>, blocks, smem, s, a)
                                       : tc::launch_tc(select_rebuild_tc_kernel<2>, blocks, smem, s, a));
   }
-  const int grid = (N + kVecs - 1) / kVecs;
-  switch (tm) {
-    case 64: return static_cast<int>(launch_kernel(select_rebuild_kernel<64, false>, grid, smem, s, a));
-    case 32: return static_cast<int>(launch_kernel(select_rebuild_kernel<32, false>, grid, smem, s, a));
-    case 16: return static_cast<int>(launch_kernel(select_rebuild_kernel<16, false>, grid, smem, s, a));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // f32: the plan's tile, vectors a work item and shared memory, or nothing
+  if (rebuild_stages(w) > f32::kMaxStages || (size_t)smem < RebuildF32Layout(a, tm).total ||
+      vecs < 1 || blocks < 1 || (tm != 64 && tm != 32) || (D | De | Dh | Wc) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tm == 64
+                              ? f32::launch(select_rebuild_f32_kernel<64>, blocks, smem, s, a)
+                              : f32::launch(select_rebuild_f32_kernel<32>, blocks, smem, s, a));
 }

@@ -56,8 +56,6 @@
 
 namespace qt {
 
-constexpr int kRows = 32;  // the most beam rows of a work item
-
 struct SelectedArgs {
   const float* x;         // (NF / F_in, D) per-vector targets
   const float* xh;        // (NF, D) beam rows

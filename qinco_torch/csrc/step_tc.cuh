@@ -1,13 +1,15 @@
-// Pieces shared by the tensor-core routes of the scoring kernels (selected
-// scores, fused-substep scores, candidate scores): loading a work item's
-// beam rows, the substep distance tile on the CUDA cores, and the
-// fixed-owner partial sums of the distances that the last product's
-// epilogue accumulates.
+// Pieces shared by the scoring kernels (selected scores, fused-substep
+// scores, candidate scores): the substep distance tile on the CUDA cores
+// (both routes), and for the tensor-core routes loading a work item's beam
+// rows and the fixed-owner partial sums of the distances that the last
+// product's epilogue accumulates.
 #pragma once
 
 #include "tc.cuh"
 
 namespace qt {
+
+constexpr int kRows = 32;  // the most beam rows of a scoring kernel's work item (substep_rows)
 
 // r = x - xh (f32, (R, D)) and rnd(xh) (bf16, row stride ldd) for the R
 // beam rows from row0, of which n_rows are real (the others are zero); x
@@ -41,11 +43,16 @@ __device__ __forceinline__ void load_residuals(const float* x, const float* xh, 
   }
 }
 
-// substep_tile (common.cuh) with the same sums in the same order, spread
-// over the tensor-core block: a thread takes two codewords and one of NG
-// groups of RH rows, so each rounded residual it reads from shared memory
-// (4 at a time) feeds two sums, and keeps 32 values of the substep
-// codebook in flight.  D is a multiple of 16.
+// The packed substep partial distances of R rows, a (K, R) tile padded to
+// R + 1 columns against bank conflicts:
+//   S[k][i] = pack(||C_k||^2 - 2 rnd(C_k)·rr_i, k)
+// with rr (R, D) the residual rows already rounded to the compute dtype,
+// sub_t (D, K) the rounded substep codebook, cn2 (K,) its f32 norms; each
+// sum over d in order.  Spread over the block's kThreads math threads: a
+// thread takes two codewords and one of NG groups of RH rows, so each
+// rounded residual it reads from shared memory (4 at a time) feeds two
+// sums, and keeps 32 values of the substep codebook in flight.  D is a
+// multiple of 16.
 template <int RH, int NG>
 __device__ __forceinline__ void substep_tile_tc(const float* rr_s, int R, int D,
                                                 const float* sub_t, const float* cn2, int K,
@@ -88,8 +95,8 @@ __device__ __forceinline__ void substep_tile_tc(const float* rr_s, int R, int D,
   }
 }
 
-// The packed substep partial distances (K, R + 1) of the R <= 32 rows of
-// rr_s (the residuals rounded to bf16), two row groups of R / 2.
+// The packed substep partial distances (K, R + 1) of the R <= kRows rows of
+// rr_s (the residuals rounded to the compute dtype), two row groups of R / 2.
 __device__ __forceinline__ void substep_rows(const float* rr_s, int R, int D, const float* sub_t,
                                              const float* cn2, int K, float* S_s) {
   constexpr int NG = tc::kTcThreads / 128;  // row groups: 128 codeword pairs at K = 256

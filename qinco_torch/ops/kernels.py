@@ -26,11 +26,11 @@ there is no fallback from one to the other.  The kernels are compiled by
 ``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
 
 Under bf16 every kernel runs its MLP products on the tensor cores.
-Under float32 they run on the CUDA cores in IEEE f32 FFMA (TF32 would
-give other results): B2 and B5 through the register-tiled stage of
+Under float32 every kernel runs them on the CUDA cores in IEEE f32 FFMA
+(TF32 would give other results), through the register-tiled stage of
 ``csrc/f32_tile.cuh`` (persistent blocks, the weights streamed by bulk
-copies in the blocked layout of :func:`blocked`), B3 and B4 in their
-first versions.  :func:`selected_plan`, :func:`fused_plan`,
+copies in the blocked layout of :func:`blocked`).  :func:`selected_plan`,
+:func:`fused_plan`,
 :func:`candidate_plan` and :func:`rebuild_plan` work out each launch
 (tile, rows or vectors per work item, shared memory, blocks) from the
 shapes alone, and raise where nothing fits.  The CPU tests
@@ -71,8 +71,7 @@ _NVCC_FLAGS = [
 ]
 # Dynamic shared memory a block may use on sm_90 (232,448 bytes).
 _SMEM_LIMIT = 227 * 1024
-_ROWS = 32  # beam rows per f32 fused-substep block, the most of a work item (kRows)
-_VECS = 8  # vectors per select-rebuild block of the f32 kernel (one warp each)
+_ROWS = 32  # the most beam rows of a scoring kernel's work item (kRows)
 # The tensor-core kernels (csrc/tc.cuh): one block per SM, and a launch
 # should offer at least one work item per SM of an H100 SXM.
 _SMS = 132
@@ -81,7 +80,7 @@ _MMA_WIDTH = 16  # every width is a multiple of the mma tile's 16
 _MMA_STAGES = 64  # tc::kMaxStages: products in one weight stream
 _STAGE_BYTES = _MMA_STAGES * 16  # tc::kStageBytes: the stage table
 _RING_BYTES = 3 * 32 * (128 + 8) * 2  # tc::kRingBytes: 3 slabs of 32 x 128 bf16, padded
-# The f32 kernels of B2' and B5 (csrc/f32_tile.cuh): one block per SM too.
+# The f32 kernels (csrc/f32_tile.cuh): one block per SM too.
 _F32_TILES = (64, 32)  # MLP row tiles, largest first
 _F32_PASS = 128  # f32::kPass: output columns of a pass, the blocked layout's width
 _F32_STAGES = 64  # f32::kMaxStages
@@ -476,6 +475,9 @@ def _fused_launch(spec: QincoSpec, x, xh, w: _FusedWeights, n_codes: int, F_in: 
     NF, D = xh.shape
     K, Wt = w.table.shape
     Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
+    if not _is_bf16(spec):
+        w = w._replace(**{f: blocked(getattr(w, f))
+                          for f in ("w2", "concat_w2", "ffn_up", "ffn_down", "out_proj")})
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
     _launch("fused_substep_scores", xh,
             [x.contiguous(), xh.contiguous(), w.sub_t, w.cn2, w.table, w.w2, w.concat_w2,
@@ -700,6 +702,9 @@ def select_rebuild(
     stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
     plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr), stages=stages,
                         sms=_sm_count(xh.device))
+    if not bf16:
+        w = w._replace(**{f: blocked(getattr(w, f)) for f in ("in_proj", "concat_w", "concat_w2",
+                                                              "ffn_up", "ffn_down", "out_proj")})
     xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
     codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
     parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
@@ -738,24 +743,21 @@ def pad_rank(w: _ChainWeights) -> _ChainWeights:
 # ---------------------------------------------------------------------------
 # Launch plans of the four kernels
 #
-# bf16: the tensor-core kernels, one block per SM walking the work items;
-# a work item is R beam rows (or V vectors), the most (up to 32 rows, or a
+# Every kernel is persistent, one block per SM walking the work items; a
+# work item is R beam rows (or V vectors), the most (up to 32 rows, or a
 # tile's worth of vectors) that still leaves _SMS items, so that every SM
-# has work; the MLP tile is the largest of _MMA_TILES whose shared memory
-# fits, then R (or V) shrinks until it fits.  f32, B2' and B5: the same
-# walk over work items of R rows with the register-tiled f32 kernels, the
-# tile the largest of _F32_TILES that fits.  f32, B4 and B3: the CUDA-core
-# kernels of the first port, one block per 32 beam rows (B4) or 8 vectors
-# (B3), the largest MLP tile whose shared memory fits.  The byte counts are
-# those of SelectedLayout, SelectedF32Layout, FusedLayout, CandidateLayout,
-# CandidateF32Layout and RebuildLayout in the .cu files.
+# has work; the MLP tile is the largest whose shared memory fits, then R
+# (or V) shrinks until it fits.  bf16: the tensor-core kernels, the tile
+# one of _MMA_TILES.  f32: every f32 route runs on the register-tiled stage,
+# the tile one of _F32_TILES.  The byte counts are those of the .cu files'
+# layouts: SelectedLayout, SelectedF32Layout, FusedLayout, FusedF32Layout,
+# CandidateLayout, CandidateF32Layout, RebuildLayout and RebuildF32Layout.
 # ---------------------------------------------------------------------------
 
 
 class LaunchPlan(NamedTuple):
     tm: int  # MLP row tile: (row, slot) or (vector, beam) pairs
-    per_item: int  # beam rows (B2, B4, B5) or vectors (B3) per work item, or per
-    #                block (the f32 kernels of B3 and B4)
+    per_item: int  # beam rows (B2, B4, B5) or vectors (B3) per work item
     smem: int  # dynamic shared memory of a block, bytes
     items: int  # work items
     blocks: int  # blocks launched
@@ -790,21 +792,25 @@ def _check_mma(stages: int, **dims: int) -> None:
                          f"stream at most {_MMA_STAGES}")
 
 
-def _item_plan(name: str, n: int, most, smem_of, sms: int, dims: str,
-               tiles=_MMA_TILES, mma: bool = True) -> LaunchPlan:
-    """The plan of a persistent kernel for ``n`` rows (or vectors): for
-    each tile of ``tiles``, largest first, ``most(tm)`` rows a work item
-    (fewer when that leaves fewer than _SMS items), halved until
-    ``smem_of(rows, tm)`` fits; raises when nothing fits.  One block per SM,
-    or per item when there are fewer."""
-    for tm in tiles:
+def _item_plan(name: str, n: int, most, smem_of, sms: int, *, bf16: bool, stages: int,
+               widths: dict, dims: str) -> LaunchPlan:
+    """The plan of a persistent kernel for ``n`` rows (or vectors), on the
+    tensor cores (bf16: ``widths`` multiples of 16, the tiles _MMA_TILES)
+    or on the f32 stage (multiples of 4, _F32_TILES): for each tile,
+    largest first, ``most(tm)`` rows a work item (fewer when that leaves
+    fewer than _SMS items), halved until ``smem_of(rows, tm)`` fits; raises
+    when a width or the count of products does not suit the route, or when
+    nothing fits.  One block per SM, or per item when there are fewer."""
+    (_check_mma if bf16 else _check_f32)(stages, **widths)
+    for tm in _MMA_TILES if bf16 else _F32_TILES:
         per = _per_item(n, most(tm))
         while per:
             smem = smem_of(per, tm)
             if smem <= _SMEM_LIMIT:
                 items = -(-n // per)
-                return LaunchPlan(tm, per, smem, items, min(items, sms), mma)
+                return LaunchPlan(tm, per, smem, items, min(items, sms), bf16)
             per //= 2
+    dims = ", ".join([f"{k}={v}" for k, v in widths.items()] + [dims])
     raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory ({dims})")
 
 
@@ -843,6 +849,29 @@ def _candidate_f32_smem(R, tm, A, D, De, Dh, Wc, in_proj, low_rank) -> int:
     return head + tiles + _f32_ring(tm)
 
 
+def _fused_f32_smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj) -> int:
+    fold_up, low_rank = layout == "fold_up", layout == "low_rank"
+    head = (_F32_STAGE_BYTES + 16 + _a16(4 * R * D) + _a16(4 * R * Wc)
+            + (_a16(4 * R * Dh) if fold_up else 0) + _a16(4 * R * A)
+            + 4 * tm * _F32_SLOTS)  # the fetch's barrier, r, ccb, up_cond, bin minima, partials
+    phase0 = 4 * tm * (_f32_ld(D) + (_f32_ld(Wc) if fold_up else 0))  # xh, ccb: the head's A
+    substep = 4 * K * (R + 1)
+    # h and one buffer for h0 and lr (low rank) or up, later the FFN hidden
+    h0_lr = 4 * tm * ((_f32_ld(De) if low_rank and in_proj else 0)
+                      + (_f32_ld(Wc) if low_rank else 0))
+    tiles = 4 * tm * _f32_ld(De) + max(h0_lr, 4 * tm * _f32_ld(Dh))
+    return head + _a16(max(phase0, substep, tiles)) + _f32_ring(tm)
+
+
+def _rebuild_f32_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
+    cat = 4 * tm * max(_f32_ld(De + D), _f32_ld(Dh))  # [h0 | cond], later the FFN hidden
+    h = 4 * tm * _f32_ld(max(De, D))  # cand for in_proj, later h
+    lr = 4 * tm * _f32_ld(Wc) if low_rank else 0
+    # the barriers, two buffers of dists, codes and parents, the tiles
+    return (_F32_STAGE_BYTES + 48 + 2 * (_a16(4 * V * C) + 2 * _a16(4 * V * F_out)) + cat + h
+            + lr + _f32_ring(tm))
+
+
 def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa) -> int:
     head = (_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A)
             + 4 * tm * 16)  # r, ccb, top-A values, the distance partials
@@ -857,15 +886,10 @@ def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bo
     """Launch plan of the selected-scores kernel for NF beam rows of A
     slots (``stages``: the step MLP's products, the condition product
     included); raises when no tile fits a block's shared memory."""
-    if not bf16:
-        _check_f32(stages, D=D, De=De, Dh=Dh)
-        return _item_plan("selected_scores", NF, lambda tm: _ROWS,
-                          lambda R, tm: _selected_f32_smem(R, tm, A, D, K, De, Dh, topa), sms,
-                          f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}", _F32_TILES, mma=False)
-    _check_mma(stages, D=D, De=De, Dh=Dh)
+    smem = _selected_mma_smem if bf16 else _selected_f32_smem
     return _item_plan("selected_scores", NF, lambda tm: _ROWS,
-                     lambda R, tm: _selected_mma_smem(R, tm, A, D, K, De, Dh, topa), sms,
-                     f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}")
+                      lambda R, tm: smem(R, tm, A, D, K, De, Dh, topa), sms, bf16=bf16,
+                      stages=stages, widths=dict(D=D, De=De, Dh=Dh), dims=f"K={K}, A={A}")
 
 
 def _chain_tiles(tm, D, De, Dh, Wc, h0: bool, low_rank: bool) -> int:
@@ -899,21 +923,11 @@ def fused_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, Wc: int, *, bf
     when no tile fits a block's shared memory."""
     if layout not in _FUSED_LAYOUTS:
         raise ValueError(f"layout must be one of {_FUSED_LAYOUTS}, got {layout!r}")
-    if not bf16:
-        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
-        R = _ROWS
-
-        def smem(tm):  # r, ccb, up_cond, bin minima, then the union of the phases' buffers
-            return 4 * (R * D + R * Wc + (R * Dh if layout == "fold_up" else 0) + R * A
-                        + max(R * D + K * (R + 1), tm * (D + De + max(Dh, D, Wc))))
-
-        tm = _pick_tile(smem)
-        blocks = -(-NF // R)
-        return LaunchPlan(tm, R, smem(tm), blocks, blocks, False)
-    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    smem = _fused_mma_smem if bf16 else _fused_f32_smem
     return _item_plan("fused_substep_scores", NF, lambda tm: _ROWS,
-                     lambda R, tm: _fused_mma_smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj),
-                     sms, f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}, {layout}")
+                      lambda R, tm: smem(R, tm, A, D, K, De, Dh, Wc, layout, in_proj), sms,
+                      bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
+                      dims=f"K={K}, A={A}, {layout}")
 
 
 def _candidate_mma_smem(R, tm, A, D, De, Dh, Wc, in_proj, low_rank) -> int:
@@ -930,17 +944,11 @@ def candidate_plan(NF: int, A: int, D: int, De: int, Dh: int, Wc: int, *, bf16: 
     the concat layer's width, the padded rank with a low-rank factor;
     ``stages``: the step MLP's products, the per-row condition product
     included); raises when no tile fits a block's shared memory."""
-    if not bf16:
-        _check_f32(stages, D=D, De=De, Dh=Dh, Wc=Wc)
-        return _item_plan("candidate_scores", NF, lambda tm: _ROWS,
-                          lambda R, tm: _candidate_f32_smem(R, tm, A, D, De, Dh, Wc, in_proj,
-                                                            low_rank),
-                          sms, f"D={D}, De={De}, Dh={Dh}, Wc={Wc}, A={A}", _F32_TILES, mma=False)
-    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    smem = _candidate_mma_smem if bf16 else _candidate_f32_smem
     return _item_plan("candidate_scores", NF, lambda tm: _ROWS,
-                     lambda R, tm: _candidate_mma_smem(R, tm, A, D, De, Dh, Wc, in_proj,
-                                                       low_rank),
-                     sms, f"D={D}, De={De}, Dh={Dh}, Wc={Wc}, A={A}")
+                      lambda R, tm: smem(R, tm, A, D, De, Dh, Wc, in_proj, low_rank), sms,
+                      bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
+                      dims=f"A={A}")
 
 
 def _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
@@ -957,20 +965,11 @@ def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, 
     distances, F_out beams out (Wc: the concat layer's width, the padded
     rank with a low-rank factor; ``stages``: the step MLP's products);
     raises when no tile fits a block's shared memory."""
-    if not bf16:
-        V, lr = _VECS, (Wc if low_rank else 0)
-        _check_widths(D=D, De=De, Dh=Dh, Wc=Wc)
-
-        def smem(tm):  # dists, codes, parents, then cand, cond, h, low-rank scratch, the union
-            return 4 * (V * C + 2 * V * F_out + tm * (2 * D + De + lr + max(De + D, Dh, D)))
-
-        tm = _pick_tile(smem)
-        blocks = -(-N // V)
-        return LaunchPlan(tm, V, smem(tm), blocks, blocks, False)
-    _check_mma(stages, D=D, De=De, Dh=Dh, Wc=Wc)
+    smem = _rebuild_mma_smem if bf16 else _rebuild_f32_smem
     return _item_plan("select_rebuild", N, lambda tm: max(1, tm // F_out),
-                     lambda V, tm: _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank),
-                     sms, f"D={D}, De={De}, Dh={Dh}, C={C}, F_out={F_out}")
+                      lambda V, tm: smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank), sms,
+                      bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
+                      dims=f"C={C}, F_out={F_out}")
 
 
 # ---------------------------------------------------------------------------
@@ -996,16 +995,6 @@ def _check_widths(**dims: int) -> None:
     bad = {k: v for k, v in dims.items() if v % 4}
     if bad:
         raise ValueError(f"the kernels need widths that are multiples of 4, got {bad}")
-
-
-def _pick_tile(smem) -> int:
-    """The largest MLP row tile (64, 32 or 16 rows) whose shared memory
-    fits one block; raises when none does."""
-    for tm in (64, 32, 16):
-        if smem(tm) <= _SMEM_LIMIT:
-            return tm
-    raise ValueError(
-        f"kernel shared memory {smem(16)} B exceeds {_SMEM_LIMIT} B even at a 16-row tile")
 
 
 def _is_bf16(spec: QincoSpec) -> int:

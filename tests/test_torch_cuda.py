@@ -3,8 +3,8 @@ selected scores (in-kernel top-A and external vals, lean and folded
 tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
 with a low-rank factor, unpacked at K = 1024); the bf16 tensor-core
-kernels and the f32 kernels of selected and candidate scores with a
-ragged last work item, and the f32 kernels' repeatability.  Under bf16
+kernels and the f32 kernels of all four with a ragged last work item, and
+the f32 kernels' repeatability.  Under bf16
 every kernel is its tensor-core route.  Then the determinism of the
 segment sum, k-means and train steps on the card (same bits on every
 run), and the search pipeline's device ops (the coarse probe, the
@@ -364,11 +364,66 @@ def test_f32_candidate_ragged_last_work_item(cuda, kind, case):
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
 
 
+# The f32 routes of B4 (each table layout) and B3 (with and without a
+# low-rank concat factor) at N = 1029 vectors, with the limits of the f32
+# cases above.  B4 holds 16 beam rows an item at qinco2-S (8 at qinco2-M),
+# so the last item holds 4 (of 8 at qinco2-M), and at the IVF first step
+# one row of 4; B3 holds 2 vectors an item at qinco2-S, so the last item
+# holds one vector, 32 of its 64 pairs.
+F32_REBUILDS = {"full": {}, "rank64": dict(concat_rank=64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_f32_fused_substep_ragged_last_work_item(cuda, layout, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "float32", seed=31, device=cuda, fused_substep=True,
+                    **LAYOUTS[layout])
+    x, xh = _inputs(spec, F_in, N=1029, seed=32, device=cuda)
+    before = kernels.LAUNCHES["fused_substep_scores"]
+    got = kernels.fused_substep_scores(spec, x, xh, p, n_codes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_substep_scores"] == before + 1
+    _check_scores(got, kernels.fused_substep_scores_plain(spec, x, xh, p, n_codes), "float32")
+
+
+def _packed_dists(spec, p, x, xh, F_in, n_codes, seed):
+    """Packed distances (N, F_in·n_codes) for select-rebuild: the scores of
+    random ids (candidate scores' plain version, which takes a low-rank
+    factor)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, spec.K, xh.shape[:1] + (n_codes,), generator=g).int().to(x.device)
+    d = kernels.candidate_scores_plain(spec, x.repeat_interleave(F_in, 0), xh, idx, p,
+                                       pack_ids=True)
+    return d.reshape(x.shape[0], F_in * n_codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED)
+@pytest.mark.parametrize("kind", sorted(F32_REBUILDS))
+def test_f32_select_rebuild_ragged_last_work_item(cuda, kind, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "float32", seed=33, device=cuda, **F32_REBUILDS[kind])
+    x, xh = _inputs(spec, F_in, N=1029, seed=34, device=cuda)
+    dists = _packed_dists(spec, p, x, xh, F_in, n_codes, seed=35)
+    F_out = min(spec.B, F_in * n_codes)
+    before = kernels.LAUNCHES["select_rebuild"]
+    xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["select_rebuild"] == before + 1
+    xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, n_codes, F_out)
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(parents, parents_p)
+    torch.testing.assert_close(xhat, xhat_p, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["S", "M"])
 def test_f32_kernels_repeat_bit_for_bit(cuda, case):
-    """The f32 kernels of B2' (both routes) and B5 sum each output in one
-    fixed order: two launches on the same inputs give the same bits."""
+    """The f32 kernels of B2' (both routes), B4 (fold_up), B3 and B5 sum
+    each output in one fixed order: two launches on the same inputs give
+    the same bits."""
     widths, F_in, n_codes = CASES[case]
     spec, p = _step(widths, "float32", seed=27, device=cuda)
     x, xh = _inputs(spec, F_in, N=300, seed=28, device=cuda)
@@ -384,6 +439,16 @@ def test_f32_kernels_repeat_bit_for_bit(cuda, case):
     a = kernels.candidate_scores(spec, x_f, xh, idx, p)
     b = kernels.candidate_scores(spec, x_f, xh, idx, p)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    spec, p = _step(widths, "float32", seed=36, device=cuda, fused_substep=True)
+    a = kernels.fused_substep_scores(spec, x, xh, p, n_codes)
+    b = kernels.fused_substep_scores(spec, x, xh, p, n_codes)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    dists = _packed_dists(spec, p, x, xh, F_in, n_codes, seed=37)
+    F_out = min(spec.B, F_in * n_codes)
+    a = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
+    b = kernels.select_rebuild(spec, dists, xh, p, n_codes, F_out)
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
 
 
 @pytest.mark.cuda

@@ -17,9 +17,9 @@ rows) and at the IVF first step (F_in = 1, A = 32):
 - where no tile fits, or a width is not a multiple of the mma tile, the
   plan raises: there is no fallback to another kernel.
 
-Under float32, B2' and B5 are the register-tiled f32 kernels (one block
+Under float32 every kernel is its register-tiled f32 kernel (one block
 per SM over work items, like the bf16 ones, a 64-pair tile at qinco2-S
-and a 32-pair tile at -M and -L); B3 and B4 keep their CUDA-core kernels.
+and a 32-pair tile at -M and -L), and the same rules hold.
 """
 
 import numpy as np
@@ -53,10 +53,13 @@ def _selected_plan(spec, F_in, A, bf16=True, topa=True):
                                  topa=topa, stages=stages, sms=SMS)
 
 
-def _rebuild_plan(spec, F_in, A, bf16=True):
-    stages = 2 * int(_proj(spec)) + 1 + 2 * spec.L
-    return kernels.rebuild_plan(N, F_in * A, spec.B, spec.D, spec.De, spec.dh, spec.De,
-                                bf16=bf16, low_rank=False, stages=stages, sms=SMS)
+def _rebuild_plan(spec, F_in, A, bf16=True, rank=None):
+    """The wrapper's stage count: [in_proj], concat, [concat_w2], the FFN
+    blocks, [out_proj]; Wc the rank (padded to 16 under bf16) or De."""
+    stages = 2 * int(_proj(spec)) + 1 + int(rank is not None) + 2 * spec.L
+    Wc = spec.De if rank is None else rank if not bf16 else -(-rank // 16) * 16
+    return kernels.rebuild_plan(N, F_in * A, spec.B, spec.D, spec.De, spec.dh, Wc,
+                                bf16=bf16, low_rank=rank is not None, stages=stages, sms=SMS)
 
 
 def _check_common(plan, n):
@@ -108,19 +111,21 @@ def test_plans_at_the_ivf_first_step_split_rows_finer():
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_f32_plans_are_the_cuda_core_kernels(preset):
-    """compute_dtype=float32: B2' is the register-tiled f32 kernel, one
-    block per SM over work items of up to 32 beam rows, a 64-pair tile at
-    the qinco2-S widths and a 32-pair tile at the qinco2-M and -L widths
-    (where a 64-pair tile of f32 activations does not fit beside the weight
-    ring); B3 keeps its CUDA-core kernel, 8 vectors a block."""
+    """compute_dtype=float32: B2' and B3 are register-tiled f32 kernels,
+    one block per SM over work items, a 64-pair tile at the qinco2-S widths
+    and a 32-pair tile at the qinco2-M and -L widths (where a 64-pair tile
+    of f32 activations does not fit beside the weight ring): B2' up to 32
+    beam rows an item, B3 a tile's worth of vectors (2 of F_out = 32 beams
+    at qinco2-S, 1 at -M and -L)."""
     spec = _spec(preset)
     sel = _selected_plan(spec, 32, spec.A, bf16=False)
     want = (64, 32) if preset == "qinco2-S" else (32, 16)
     assert (sel.mma, sel.tm, sel.per_item) == (False, *want)
     _check_f32(sel, N * 32)
     reb = _rebuild_plan(spec, 32, spec.A, bf16=False)
-    assert (reb.mma, reb.per_item, reb.blocks) == (False, 8, N // 8)
-    assert reb.smem <= SMEM_LIMIT
+    want = (64, 2) if preset == "qinco2-S" else (32, 1)
+    assert (reb.mma, reb.tm, reb.per_item) == (False, *want)
+    _check_f32(reb, N)
 
 
 @pytest.mark.parametrize("widths", [dict(De=2048, Dh=2048), dict(De=1024, Dh=4096)],
@@ -246,17 +251,16 @@ def test_scoring_plans_at_the_main_steps():
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_f32_scoring_plans_are_the_cuda_core_kernels(preset):
-    """compute_dtype=float32: B4 keeps its CUDA-core kernel (32 beam rows a
-    block, the largest MLP tile of 64 / 32 / 16 rows that fits); B5 is the
-    register-tiled f32 kernel, one block per SM over work items of up to
-    32 rows, a 64-pair tile at the qinco2-S widths (16 rows an item beside
-    it), a 32-pair tile at the qinco2-M and -L widths."""
+    """compute_dtype=float32: B4 (fold_up) and B5 are register-tiled f32
+    kernels, one block per SM over work items of up to 32 rows, a 64-pair
+    tile at the qinco2-S widths (B4 32 rows an item beside it, B5 16), a
+    32-pair tile at the qinco2-M and -L widths (16 rows an item)."""
     spec = _spec(preset)
-    D, K, De, Dh, A = spec.D, spec.K, spec.De, spec.dh, spec.A
+    A = spec.A
     fus = _fused_plan(spec, 32, A, "fold_up", bf16=False)
-    want = next(tm for tm in (64, 32, 16) if 4 * (32 * D + 32 * De + 32 * Dh + 32 * A + max(
-        32 * D + K * 33, tm * (D + De + max(Dh, D, De)))) <= SMEM_LIMIT)
-    assert (fus.mma, fus.tm, fus.per_item, fus.blocks) == (False, want, 32, N * 32 // 32)
+    assert (fus.mma, fus.tm, fus.per_item) == (False, *((64, 32) if preset == "qinco2-S"
+                                                        else (32, 16)))
+    _check_f32(fus, N * 32)
     cand = _candidate_plan(spec, 32, A, "K1024", bf16=False)
     assert (cand.mma, cand.tm, cand.per_item) == (False, *((64, 16) if preset == "qinco2-S"
                                                           else (32, 16)))
@@ -264,7 +268,7 @@ def test_f32_scoring_plans_are_the_cuda_core_kernels(preset):
 
 
 def _check_f32(plan, n):
-    """An f32 plan of B2' or B5: one block per SM (or per item when there
+    """An f32 plan: one block per SM (or per item when there
     are fewer), at least one work item per SM, the items covering the rows
     once, the shared memory within a block's."""
     assert not plan.mma
@@ -298,20 +302,54 @@ def test_f32_candidate_plan_fits(preset, step, kind):
     assert plan.tm == (64 if preset == "qinco2-S" else 32)
 
 
+@pytest.mark.parametrize("layout", sorted(FUSED_LAYOUTS))
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_f32_fused_plan_fits(preset, step, layout):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _fused_plan(spec, F_in, A, layout, bf16=False)
+    _check_f32(plan, N * F_in)
+    assert plan.tm == (64 if preset == "qinco2-S" else 32)
+
+
+@pytest.mark.parametrize("rank", [None, 8, 64], ids=["full", "rank8", "rank64"])
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_f32_rebuild_plan_fits(preset, step, rank):
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _rebuild_plan(spec, F_in, A, bf16=False, rank=rank)
+    _check_f32(plan, N)
+    assert plan.tm == (64 if preset == "qinco2-S" else 32)
+    assert plan.per_item * spec.B <= plan.tm
+
+
 def test_f32_plans_at_the_main_steps():
-    """qinco2-S, f32: B2' takes 64-pair tiles at 32 rows a work item, 1024
-    items on 132 blocks; B5 at K = 1024 64-pair tiles at 16 rows, 2048
-    items; at the IVF first step both take 4 rows (128 pairs) an item."""
+    """qinco2-S, f32: B2' and B4 (fold_up) take 64-pair tiles at 32 rows a
+    work item, 1024 items on 132 blocks; B5 at K = 1024 64-pair tiles at 16
+    rows, 2048 items; B3 64-pair tiles at 2 vectors, 512 items; at the
+    IVF first step the scoring kernels take 4 rows (128 pairs) an item and
+    B3 still 2 vectors."""
     spec = _spec("qinco2-S")
     plan = _selected_plan(spec, 32, 16, bf16=False, topa=False)
     assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 32, 1024, 132)
     plan = _candidate_plan(spec, 32, 16, "K1024", bf16=False)
     assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 16, 2048, 132)
+    plan = _fused_plan(spec, 32, 16, "fold_up", bf16=False)
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 32, 1024, 132)
+    plan = _rebuild_plan(spec, 32, 16, bf16=False)
+    assert (plan.tm, plan.per_item, plan.items, plan.blocks) == (64, 2, 512, 132)
     assert (_selected_plan(spec, 1, 32, bf16=False).per_item,
-            _candidate_plan(spec, 1, 32, "K1024", bf16=False).per_item) == (4, 4)
+            _candidate_plan(spec, 1, 32, "K1024", bf16=False).per_item,
+            _fused_plan(spec, 1, 32, "fold_up", bf16=False).per_item,
+            _rebuild_plan(spec, 1, 32, bf16=False).per_item) == (4, 4, 4, 2)
 
 
-@pytest.mark.parametrize("kernel", ["selected", "candidate"])
+F32_KERNELS = ["selected", "candidate", "fused", "rebuild"]
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
 @pytest.mark.parametrize("widths", [dict(De=2048, Dh=2048), dict(De=1024, Dh=4096)],
                          ids=["De=Dh=2048", "Dh=4096"])
 def test_f32_plans_raise_where_no_tile_fits(widths, kernel):
@@ -319,28 +357,46 @@ def test_f32_plans_raise_where_no_tile_fits(widths, kernel):
     with pytest.raises(ValueError, match="no tile fits"):
         if kernel == "selected":
             kernels.selected_plan(N * 32, 16, 128, 256, De, Dh, bf16=False, topa=False, stages=6)
-        else:
+        elif kernel == "candidate":
             kernels.candidate_plan(N * 32, 16, 128, De, Dh, De, bf16=False, in_proj=True,
                                    low_rank=False, stages=8)
+        elif kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, De, Dh, De, bf16=False, layout="fold_up",
+                               in_proj=True, stages=6)
+        else:
+            kernels.rebuild_plan(N, 512, 32, 128, De, Dh, De, bf16=False, low_rank=False,
+                                 stages=7)
 
 
-@pytest.mark.parametrize("kernel", ["selected", "candidate"])
+@pytest.mark.parametrize("kernel", F32_KERNELS)
 def test_f32_plans_raise_on_bad_widths_and_too_many_products(kernel):
     """Widths off the 4-wide loads, and more products than one weight
     stream holds, are refused: there is no fallback to another kernel."""
     with pytest.raises(ValueError, match="multiples of 4"):
         if kernel == "selected":
             kernels.selected_plan(N * 32, 16, 128, 256, 130, 256, bf16=False, topa=True, stages=6)
-        else:
+        elif kernel == "candidate":
             kernels.candidate_plan(N * 32, 16, 128, 128, 256, 6, bf16=False, in_proj=False,
                                    low_rank=True, stages=8)
+        elif kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 6, bf16=False, layout="low_rank",
+                               in_proj=False, stages=6)
+        else:
+            kernels.rebuild_plan(N, 512, 32, 128, 128, 256, 6, bf16=False, low_rank=True,
+                                 stages=6)
     with pytest.raises(ValueError, match="products"):
         if kernel == "selected":
             kernels.selected_plan(N * 32, 16, 128, 256, 128, 256, bf16=False, topa=True,
                                   stages=65)
-        else:
+        elif kernel == "candidate":
             kernels.candidate_plan(N * 32, 16, 128, 128, 256, 128, bf16=False, in_proj=False,
                                    low_rank=False, stages=65)
+        elif kernel == "fused":
+            kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 128, bf16=False, layout="folded",
+                               in_proj=False, stages=65)
+        else:
+            kernels.rebuild_plan(N, 512, 32, 128, 128, 256, 128, bf16=False, low_rank=False,
+                                 stages=65)
 
 
 @pytest.mark.parametrize("kernel", ["fused", "candidate"])
