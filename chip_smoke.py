@@ -35,6 +35,19 @@
      select-rebuild on its output) and fused-substep scores, each at bf16
      and f32; selected scores with external vals (``pallas=true``);
      candidate scores at K=1024, bf16 and f32.
+   Between the qinco2-S checks and the qinco2-L ones, the breakdown phase
+   (``breakdown_phase``): the phase-breakdown kernels of
+   ``qinco_torch.ops.breakdown`` (B2's seven kernels at N=1024: its nine
+   modes, ``deferred`` and ``catfetch`` being ``full``'s kernel; B4's
+   ``sel`` and ``sel+fetch`` at N=4096, on the inputs of the two breakdown
+   scripts), each against its plain version (``nodist`` against sums
+   exact to float64, with two planted faults that the bound must reject);
+   then the two entry scripts'
+   ``run`` (``scripts/torch_ktopa_breakdown.py``,
+   ``scripts/torch_kernel_variants.py``) with the launch counts at 0, every
+   breakdown kernel launched, and one ``{"breakdown": ...}`` line: each
+   variant's device ms a launch and bound, B2's phase split and B4's
+   selection and fetch shares.
 4. Path phase at qinco2-S, random weights and data from ``--seed`` (the
    data: decodes of random codes plus noise of std ``NOISE``, or
    ``SPEED_NOISE`` for the speed profile), through ``encode_chunked``
@@ -161,7 +174,9 @@
    summary's counts.
 9. The smoke's total seconds (``smoke_s``), the kernel summary line (each
    kernel's numbers at its qinco2-S main shape, its launches over every
-   phase), then ``{"ok": true, "device": ...}`` last.
+   phase; the breakdown kernels' at the breakdown phase's shapes, ``ms``
+   their device ms a launch, their launches on the entry scripts' run),
+   then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.
@@ -171,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -202,7 +218,7 @@ from qinco_torch.models.params import (
 from qinco_torch.models import qinco as qinco_model
 from qinco_torch.models.qinco import decode, decode_raw, encode, encode_chunked
 from qinco_torch.models.spec import spec_from_cfg
-from qinco_torch.ops import kernels
+from qinco_torch.ops import breakdown, kernels
 from qinco_torch.ops.distances import sqdist_topk
 from qinco_torch.ops.kmeans import DIST_BUDGET_ELEMS, accumulate_pass
 from qinco_torch.parallel import distributed as pdist
@@ -285,6 +301,15 @@ SOURCES = {
     "candidate_scores": ("qinco_torch/csrc/candidate_scores.cu",
                          "qinco_tpu/ops/pallas_kernels.py:1019"),
 }
+# the phase-breakdown kernels (launch-count name -> source, the TPU kernel)
+BREAKDOWN_SOURCES = {
+    **{f"ktopa_variant:{m}": ("qinco_torch/csrc/ktopa_variants.cu",
+                              "scripts/ktopa_breakdown.py:335") for m in kernels.KTOPA_KERNELS},
+    **{f"fused_cut:{c}": ("qinco_torch/csrc/fused_cuts.cu",
+                          "scripts/kernel_variants.py:182") for c in kernels.FUSED_CUTS},
+}
+# Breakdown phase: calls timed back to back per variant in the entry scripts.
+BREAKDOWN_ITERS = 20
 
 
 def emit(obj) -> None:
@@ -435,6 +460,47 @@ def rebuild_work(spec, N, F_in, A, F_out, esize, rank=None):
     flops = N * F_out * _chain_flops(spec, rank)
     nbytes = 4 * (N * F_in * A + N * F_in * D + K * D) + _chain_bytes(spec, rank, esize) + (
         4 * N * F_out * (D + 2))
+    return flops, nbytes
+
+
+def ktopa_work(spec, N, F_in, A, mode):
+    """FLOPs and bytes of a ``ktopa_variant`` kernel's function: B2's
+    (``selected_work``) for ``full``, ``perslot`` and ``tournament``.  The
+    cuts fix their ids (slot a: codeword a), so their output needs no
+    substep products and no substep codebook: ``noextract`` the condition
+    product, then per slot the MLP and the distance on codeword a, and A
+    rows of the table; ``mlponly``, ``nodist`` and ``shell`` give all A
+    slots of a row one candidate, codeword 0, so they need one slot's work
+    a row and one row of the table: ``mlponly`` the condition product, the
+    MLP and the distance (3·D), ``nodist`` the same with the sum of
+    out + cand (D), ``shell`` ||r - cand||^2 alone (3·D, no weights).
+    Bytes: x, xh and the (NF, A) output once, and what each reads of the
+    table and the weights."""
+    if mode in ("full", "perslot", "tournament"):
+        return selected_work(spec, N, F_in, A, 2)
+    D, K, De, Dh, L = _dims(spec)
+    NF, esize = N * F_in, 2
+    slots = A if mode == "noextract" else 1
+    rows = slots * (D if spec.fast else D + De) * esize
+    io = 4 * (N * D + NF * D + NF * A)
+    if mode == "shell":
+        return NF * 3 * D, io + rows
+    mlp = (2 * D * De if spec.fast else 0) + _ffn_flops(spec, L) + (2 * De * D if De != D else 0)
+    flops = NF * (2 * D * De + slots * (mlp + (D if mode == "nodist" else 3 * D)))
+    weights = D * De * esize * (2 if spec.fast else 1) + _ffn_bytes(spec, esize)
+    return flops, io + rows + weights
+
+
+def fused_cut_work(spec, N, F_in, A, cut, Wt):
+    """FLOPs and bytes of a ``fused_cut``: the substep products (the bin
+    minima's compares not counted), for ``sel+fetch`` the squares of the
+    winners' Wt-wide rows; x, xh, the substep codebook, the (K, Wt) bf16
+    table (``sel+fetch``) and the (NF, A) output once."""
+    D, K = spec.D, spec.K
+    NF = N * F_in
+    fetch = cut == "sel+fetch"
+    flops = NF * 2 * K * D + (NF * A * 2 * Wt if fetch else 0)
+    nbytes = 4 * (N * D + NF * D + NF * A) + K * D * 4 + (K * Wt * 2 if fetch else 0)
     return flops, nbytes
 
 
@@ -946,6 +1012,180 @@ def deep_kernel_checks(N: int, seed: int, device) -> None:
         check_candidate(f"qinco2-L widths K=1024{suffix}",
                         spec_of("qinco2-L", "K=1024").with_(compute_dtype=dtype), N, spec.B,
                         spec.A, **kw)
+
+
+def load_script(name: str):
+    """A script of ``scripts/`` as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nodist_excess(got, plain, exact) -> dict:
+    """How far ``nodist``'s values ``got`` lie from the sums exact to
+    float64 (``breakdown.nodist_exact``), as shares of the bounds of
+    ``tests/torch_exact.py``'s rule: the max |got - exact| against twice
+    the plain version's max |plain - exact| plus one bf16 unit of the
+    largest |exact|, the mean against four times the plain version's mean
+    plus one bf16 unit of the mean |exact|.  Both <= 1: as near the exact
+    sums as the plain version, up to those multiples."""
+    e_got, e_plain = (_unpacked(got) - exact).abs(), (_unpacked(plain) - exact).abs()
+    unit = 2.0 ** -8
+    max_bound = 2.0 * e_plain.max() + unit * exact.abs().max()
+    mean_bound = 4.0 * e_plain.mean() + unit * exact.abs().mean()
+    return {"max_share": (e_got.max() / max_bound).item(),
+            "mean_share": (e_got.mean() / mean_bound).item()}
+
+
+def compare_nodist(label, got, want, exact) -> dict:
+    """``nodist`` packs |sum(out + cand)| + 1 with slot a's id a: the ids
+    equal, and the values within ``nodist_excess``'s bounds.  Its signed
+    sum carries a bf16 rounding flip of an early block on through every
+    later term, which the distance's squares would damp, and the kernel
+    and the plain version flip in their own places: so both are held
+    against the exact sums, not one against the other."""
+    check(torch.equal(kernels.unpack_ids(got), kernels.unpack_ids(want)), f"{label}: ids")
+    excess = nodist_excess(got, want, exact)
+    check(max(excess.values()) <= 1.0, f"{label}: further from the exact sums than {excess}")
+    return excess
+
+
+def nodist_faults(spec, x, xh, p, A, want, exact) -> dict:
+    """The ``nodist`` kernel run with two faults planted through its inputs
+    (its last FFN block skipped: that block's down-projection zeroed, so
+    the residual passes h on; the codeword not added to the output: the
+    QINCo1 flag), each held by ``nodist_excess`` against the sound plain
+    version and the exact sums: each must fail the bound, or the check
+    that passes the sound kernel could pass a wrong one."""
+    skipped = p._replace(ffn_down=torch.cat([p.ffn_down[:-1], 0 * p.ffn_down[-1:]]))
+    res = {"last_ffn_block_skipped": breakdown.ktopa_variant(spec, x, xh, skipped, A, "nodist"),
+           "cand_not_added": breakdown.ktopa_variant(spec.with_(qinco1_mode=True), x, xh, p, A,
+                                                     "nodist")}
+    res = {name: nodist_excess(got, want, exact) for name, got in res.items()}
+    for name, excess in res.items():
+        check(max(excess.values()) > 1.0, f"nodist: the fault {name} passes the bound: {excess}")
+    return res
+
+
+def compare_sel(label, got, want, spec, x, xh, p, F_in) -> torch.Tensor:
+    """B4's bin minima (f32 sums in another order on each side): ids equal
+    wherever the bin's two least substep distances are more than 1e-3
+    apart; returns where the ids agree."""
+    w = kernels._fused_weights(spec, p)
+    packed = kernels._substep_packed(spec, x.repeat_interleave(F_in, 0) - xh, w.sub_t, w.cn2)
+    two = _unpacked(packed).view(len(xh), spec.A, -1).sort(dim=2).values[..., :2]
+    same = kernels.unpack_ids(got) == kernels.unpack_ids(want)
+    check(bool(same[two[..., 1] - two[..., 0] > 1e-3].all()),
+          f"{label}: ids differ where the bin's minimum is distinct")
+    return same
+
+
+def breakdown_phase(seed: int, device) -> dict:
+    """The phase-breakdown kernels (``qinco_torch.ops.breakdown``): B2's
+    kernels (``kernels.KTOPA_KERNELS``) at the script's N = 1024 and B4's
+    cuts at N = 4096, on the
+    inputs of ``scripts/torch_ktopa_breakdown.py`` and
+    ``scripts/torch_kernel_variants.py`` from ``seed``.  First each kernel
+    against its plain version (B2's bf16 limits; ``nodist`` and ``sel`` as
+    their compare functions say; ``sel+fetch`` rtol 1e-2 where the
+    winners agree); then the slice's path: both entry scripts' ``run`` with
+    the counts at 0 (production, every kernel or cut, ``BREAKDOWN_ITERS``
+    calls each back to back), every kernel launched.  One ``breakdown``
+    line: each variant's ms and bound, B2's split (extraction = full -
+    noextract, fetch = noextract - mlponly, distance epilogue = mlponly -
+    nodist, MLP = nodist - shell, and the shell) in ms and as shares of
+    ``full``, ``tournament`` against ``full``, B4's selection (``sel``) and
+    fetch (``sel+fetch`` - ``sel``) as shares of its production launch.
+    Returns each kernel's numbers for the summary line and the launches."""
+    tkb, tkv = load_script("torch_ktopa_breakdown"), load_script("torch_kernel_variants")
+    res = {}
+    kspec, A = tkb.SPEC, tkb.SPEC.A
+    kw = tkb.make_inputs(seed)
+    x, xh = (torch.from_numpy(kw[k]).to(device) for k in ("x", "xh"))
+    p = tkb.step_params(kw, device)
+    for mode in kernels.KTOPA_KERNELS:
+        label = f"ktopa_variant:{mode}"
+        got = breakdown.ktopa_variant(kspec, x, xh, p, A, mode)
+        plain = lambda: breakdown.ktopa_variant_plain(kspec, x, xh, p, A, mode)  # noqa: E731
+        want = plain()
+        extra = {}
+        if mode == "nodist":
+            exact = breakdown.nodist_exact(kspec, x, xh, p, A)
+            extra = dict(exact_check=dict(kernel=compare_nodist(label, got, want, exact),
+                                          faults=nodist_faults(kspec, x, xh, p, A, want, exact)))
+            err = (_unpacked(got) - _unpacked(want)).abs().max().item()
+        else:
+            err = compare_scores(label, got, want, "bfloat16")
+        b_ms, b_by = bound_ms(*ktopa_work(kspec, tkb.N, kspec.B, A, mode), "bfloat16")
+        res[label] = dict(max_abs_err=err, plain_ms=time_ms(plain, reps=3, warmup=1),
+                          bound_ms=b_ms, bound_by=b_by, **extra)
+    res["ktopa_variant:full"]["aliases"] = sorted(kernels.KTOPA_ALIASES)
+    fspec, A = tkv.SPEC, tkv.SPEC.A
+    kw = tkv.make_inputs(seed)
+    x, xh = (torch.from_numpy(kw[k]).to(device) for k in ("x", "xh"))
+    p = tkv.step_params(kw, device)
+    same = None
+    for cut in kernels.FUSED_CUTS:
+        label = f"fused_cut:{cut}"
+        got = breakdown.fused_cut(fspec, x, xh, p, A, cut)
+        plain = lambda: breakdown.fused_cut_plain(fspec, x, xh, p, A, cut)  # noqa: E731
+        want = plain()
+        if cut == "sel":
+            same = compare_sel(label, got, want, fspec, x, xh, p, fspec.B)
+            got, want = _unpacked(got), _unpacked(want)
+            rtol = 1e-4
+        else:  # where the winners agree
+            check(same.float().mean().item() >= 0.98, f"{label}: winners agree on < 98%")
+            rtol = 1e-2
+        torch.testing.assert_close(got[same], want[same], rtol=rtol, atol=1e-4)
+        Wt = breakdown.variant_table(fspec, p).shape[1]
+        b_ms, b_by = bound_ms(*fused_cut_work(fspec, tkv.N, fspec.B, A, cut, Wt), "bfloat16")
+        res[label] = dict(max_abs_err=(got[same] - want[same]).abs().max().item(),
+                          plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by)
+    del got, want, x, xh
+    torch.cuda.empty_cache()
+
+    # the slice's path: the two entry points, the counts at 0 just before
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    b2 = tkb.run(["production", *kernels.KTOPA_KERNELS], BREAKDOWN_ITERS, device=device,
+                 seed=seed)
+    b4 = tkv.run(["production", *kernels.FUSED_CUTS], BREAKDOWN_ITERS, device=device, seed=seed)
+    launches = dict(kernels.LAUNCHES)
+    for name in (*BREAKDOWN_SOURCES, "selected_scores", "fused_substep_scores"):
+        check(launches[name] > 0, f"breakdown: {name} was not launched on the slice's path")
+    # variant -> (ms a call, device ms a launch), keyed without the rows
+    ms2, ms4 = ({k.split("@")[0]: (v, r["kernel_ms"].get(k)) for k, v in r["ms_per_step"].items()}
+                for r in (b2, b4))
+    check(all(isinstance(v, float) for v, _ in (*ms2.values(), *ms4.values())),
+          f"breakdown: errors {b2['ms_per_step']} {b4['ms_per_step']}")
+    for name in BREAKDOWN_SOURCES:
+        kind, variant = name.split(":")
+        call, launch = (ms2 if kind == "ktopa_variant" else ms4)[variant]
+        res[name].update(ms=launch, ms_call=call, launches=launches[name])
+    k2 = {v: launch for v, (_, launch) in ms2.items()}  # device ms a launch
+    full = k2["full"]
+    split = {"extraction": full - k2["noextract"], "fetch": k2["noextract"] - k2["mlponly"],
+             "distance_epilogue": k2["mlponly"] - k2["nodist"], "mlp": k2["nodist"] - k2["shell"],
+             "shell": k2["shell"]}
+    prod4, sel, self_ = (ms4[v][1] for v in ("production", "sel", "sel+fetch"))
+    line = {
+        "card": b2["device"], "iters": BREAKDOWN_ITERS,
+        "b2": {"n": b2["batch"], "ms_launch": k2, "ms_call": {v: c for v, (c, _) in ms2.items()},
+               "bound_ms": {m: res[f"ktopa_variant:{m}"]["bound_ms"]
+                            for m in kernels.KTOPA_KERNELS},
+               "nodist_exact_check": res["ktopa_variant:nodist"]["exact_check"],
+               "split_ms": split, "split_share_of_full": {k: v / full for k, v in split.items()},
+               "tournament_over_full": k2["tournament"] / full,
+               "perslot_over_full": k2["perslot"] / full},
+        "b4": {"n": b4["batch"], "ms_launch": {v: m for v, (_, m) in ms4.items()},
+               "ms_call": {v: c for v, (c, _) in ms4.items()},
+               "bound_ms": {c: res[f"fused_cut:{c}"]["bound_ms"] for c in kernels.FUSED_CUTS},
+               "selection_share": sel / prod4, "fetch_share": (self_ - sel) / prod4},
+        "launches": {k: v for k, v in launches.items() if v}}
+    emit({"breakdown": line})
+    return dict(kernels=res, launches=launches)
 
 
 def deep_paths() -> list:
@@ -1871,6 +2111,7 @@ def main() -> None:
     check_selected("qinco2-S fast_encode=true pallas=true (f32, in-kernel top-A)",
                    spec_of("qinco2-S", "pallas=true", "fast_encode=true", profile=None), N, s.B,
                    s.A, seed, device)
+    bd = breakdown_phase(seed, device)
     deep_kernel_checks(N, seed, device)
 
     # (label, spec, scoring kernel, data noise, MSE bound and least code
@@ -1892,6 +2133,8 @@ def main() -> None:
          "candidate_scores", NOISE, 1.01, 0.95),
     ]
     launches = drive_paths(paths, args.n, N, seed, device)
+    for k, v in bd["launches"].items():
+        launches[k] += v
     for k, v in drive_paths(deep_paths(), args.n, N, seed, device).items():
         launches[k] += v
 
@@ -1928,7 +2171,9 @@ def main() -> None:
              bound_by=main_shape[k]["bound_by"], library_ms=None,
              tflops=main_shape[k]["tflops"], design=main_shape[k]["design"],
              ms_batch=main_shape[k]["ms_batch"])
-        for k, (src, replaces) in SOURCES.items()]})
+        for k, (src, replaces) in SOURCES.items()] + [
+        dict(name=k, route="cuda", source=src, replaces=replaces, **bd["kernels"][k],
+             library_ms=None) for k, (src, replaces) in BREAKDOWN_SOURCES.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

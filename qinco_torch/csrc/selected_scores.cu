@@ -37,9 +37,9 @@
 // (rows, A) result goes back to device memory.  The substep tile (K x R)
 // and a warp-per-row min-and-remove give the exact top-A on the CUDA cores
 // in f32 on both routes, so the candidate set and its order are the same.
-//   bf16 (the parity profile): selected_scores_tc_kernel, every MLP
-//   product on the tensor cores (tc.cuh), activations bf16 in shared
-//   memory, the weights filled by cp.async.
+//   bf16 (the parity profile): selected_scores_tc_kernel (selected_tc.cuh,
+//   its full cut), every MLP product on the tensor cores (tc.cuh),
+//   activations bf16 in shared memory, the weights filled by cp.async.
 //   f32 (pallas=true's external vals; fast_encode=true pallas=true at f32
 //   in-kernel): selected_scores_f32_kernel, every MLP product in IEEE f32
 //   FFMA on the CUDA cores (f32_tile.cuh: TF32 would be a different
@@ -53,69 +53,9 @@
 //   rows of f32 activations do not fit), 4.2 TB/s: those widths wait on
 //   the stream.
 #include "f32_tile.cuh"
+#include "selected_tc.cuh"
 
 namespace qt {
-
-struct SelectedArgs {
-  const float* x;         // (NF / F_in, D) per-vector targets
-  const float* xh;        // (NF, D) beam rows
-  const float* vals;      // (NF, A) packed external top-A, or null
-  const float* sub_t;     // (D, K) substep codebook, rounded, transposed
-  const float* cn2;       // (K,) ||C_k||^2 of the f32 substep codebook
-  const void* table;      // (K, Wt): lean C (Wt = D) or folded [C | h_cand]
-  const void* wfold;      // (D, De) P·(I+W1) with the lean table, else null
-  const void* w2;         // (D, De) condition half of the concat weight
-  const float* concat_b;  // (De,)
-  const void* ffn_up;     // (L, De, Dh)
-  const void* ffn_down;   // (L, Dh, De)
-  const void* out_proj;   // (De, D) or null
-  float* out;             // (NF, A) packed distances
-  int NF, F_in, D, K, De, Dh, L, A, Wt, res;
-  int R;                  // beam rows per work item
-};
-
-// The exact top-A of a work item's rows, each warp taking its rows
-// (warp, warp + 8, warp + 16, warp + 24 of R <= 32) side by side.
-__device__ __forceinline__ void top_a_rows(const float* S_s, int R, int K, int A, float* val_s) {
-  constexpr int G = kRows / tc::kTcWarps;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float v[G][8];  // K <= 256 = 32 lanes x 8
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int i = warp + tc::kTcWarps * g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = lane + 32 * j;
-      v[g][j] = i < R && k < K ? S_s[k * (R + 1) + i] : CUDART_INF_F;
-    }
-  }
-  for (int a = 0; a < A; ++a) {
-    float m[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      m[g] = v[g][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) m[g] = fminf(m[g], v[g][j]);
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-#pragma unroll
-      for (int g = 0; g < G; ++g) m[g] = fminf(m[g], __shfl_xor_sync(kFull, m[g], off));
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (v[g][j] == m[g]) v[g][j] = CUDART_INF_F;
-      const int i = warp + tc::kTcWarps * g;
-      if (lane == 0 && i < R) val_s[i * A + a] = m[g];
-    }
-  }
-}
-
-// Products in a kernel's weight stream.
-__host__ __device__ inline int selected_stages(const SelectedArgs& g) {
-  return 1 + (g.wfold ? 1 : 0) + 2 * g.L + (g.out_proj ? 1 : 0);
-}
 
 // Shared-memory layout of the f32 kernel (byte offsets), the same
 // arithmetic as selected_plan in qinco_torch/ops/kernels.py:
@@ -288,191 +228,6 @@ __global__ void __launch_bounds__(f32::kBlock, 1)
   }
 }
 
-// Shared-memory layout of the tensor-core kernel (byte offsets), the same
-// arithmetic as selected_plan in qinco_torch/ops/kernels.py:
-//   stage table | r (R, D) f32 | ccb (R, De) f32 | vals (R, A) f32 |
-//   score partials (TM, 16) f32 | one region, overlaid by phase: rnd(xh)
-//   (R16, D) bf16;  then rnd(r) (R, D) f32 and the substep tile (K, R + 1)
-//   f32;  then per tile cand (TM, D), h (TM, De) and the FFN hidden
-//   (TM, Dh) bf16 | the weight ring.
-struct SelectedLayout {
-  unsigned r, ccb, val, part, u, cand, h, big, ring, total;
-  __host__ __device__ SelectedLayout(const SelectedArgs& g, int TM, bool topa) {
-    using tc::align16;
-    using tc::ld_of;
-    const size_t R = g.R, R16 = (g.R + 15) / 16 * 16;
-    r = tc::kStageBytes;
-    ccb = r + align16(4 * R * g.D);
-    val = ccb + align16(4 * R * g.De);
-    part = val + align16(4 * R * g.A);
-    u = part + 4 * (size_t)TM * kScoreSlots;
-    const size_t phase0 = 2 * R16 * ld_of(g.D);
-    const size_t substep = topa ? align16(4 * R * g.D) + 4 * (size_t)g.K * (R + 1) : 0;
-    cand = u;
-    h = cand + 2 * (size_t)TM * ld_of(g.D);
-    big = h + 2 * (size_t)TM * ld_of(g.De);
-    size_t region = phase0 > substep ? phase0 : substep;
-    const size_t tiles = big + 2 * (size_t)TM * ld_of(g.Dh) - u;
-    region = region > tiles ? region : tiles;
-    ring = u + align16(region);
-    total = ring + tc::kRingBytes;
-  }
-};
-
-// bf16 route: every MLP product on the tensor cores.  A block walks the
-// work items blockIdx.x, blockIdx.x + gridDim.x, ...: R beam rows each,
-// their R·A pairs in tiles of TM = 32·MT.
-template <int MT>
-__global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(SelectedArgs g) {
-  using namespace tc;
-  constexpr int TM = 32 * MT;
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt, R = g.R;
-  const int tid = threadIdx.x;
-  const bool topa = g.vals == nullptr, proj = g.out_proj != nullptr;
-  const SelectedLayout lay(g, TM, topa);
-  float* r_s = reinterpret_cast<float*>(sm + lay.r);      // (R, D) residual target
-  float* ccb_s = reinterpret_cast<float*>(sm + lay.ccb);  // (R, De) rnd(xh)·W2 + b
-  float* val_s = reinterpret_cast<float*>(sm + lay.val);  // (R, A) packed top-A values
-  float* part_s = reinterpret_cast<float*>(sm + lay.part);  // (TM, 16) distance partials
-  bf16* xh_b = reinterpret_cast<bf16*>(sm + lay.u);       // (R16, D) rnd(xh)
-  float* rr_s = reinterpret_cast<float*>(sm + lay.u);     // (R, D) rnd(r)
-  float* S_s = reinterpret_cast<float*>(sm + lay.u + align16(4 * (size_t)R * D));  // (K, R + 1)
-  bf16* cand_b = reinterpret_cast<bf16*>(sm + lay.cand);  // (TM, D) fetched codewords
-  bf16* h_b = reinterpret_cast<bf16*>(sm + lay.h);        // (TM, De)
-  bf16* hid_b = reinterpret_cast<bf16*>(sm + lay.big);    // (TM, Dh) FFN hidden
-  const int ldd = ld_of(D), ldh = ld_of(De), ldf = ld_of(Dh);
-
-  // The weight stream: the condition product once per item, then per tile
-  // [wfold], (U_l, D_l) x L, [out_proj].
-  WStage* stages = reinterpret_cast<WStage*>(sm);
-  if (tid == 0) {
-    const bf16* up = static_cast<const bf16*>(g.ffn_up);
-    const bf16* down = static_cast<const bf16*>(g.ffn_down);
-    int n = 0;
-    stages[n++] = {static_cast<const bf16*>(g.w2), D, De};
-    if (g.wfold) stages[n++] = {static_cast<const bf16*>(g.wfold), D, De};
-    for (int l = 0; l < g.L; ++l) {
-      stages[n++] = {up + (size_t)l * De * Dh, De, Dh};
-      stages[n++] = {down + (size_t)l * Dh * De, Dh, De};
-    }
-    if (proj) stages[n++] = {static_cast<const bf16*>(g.out_proj), De, D};
-  }
-  __syncthreads();
-  const int n_pairs = R * A, n_items = (g.NF + R - 1) / R;
-  WeightRing ring;
-  ring.init(reinterpret_cast<bf16*>(sm + lay.ring), stages, 1, selected_stages(g),
-            (n_pairs + TM - 1) / TM);
-  const bf16* table = static_cast<const bf16*>(g.table);
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int row0 = item * R, n_rows = min(R, g.NF - row0), n_valid = n_rows * A;
-    __syncthreads();  // the last item's readers of r, vals and the region are done
-
-    // ---- r = x - xh and rnd(xh)
-    load_residuals(g.x, g.xh, row0, n_rows, R, D, g.F_in, r_s, xh_b, ldd);
-    // ---- the condition half of the concat layer: ccb = rnd(xh)·W2 + b
-    mma_stage<MT>(ring, xh_b, ldd, D, De, R, [&](int t, int c, float v0, float v1) {
-      ccb_s[t * De + c] = v0 + g.concat_b[c];
-      ccb_s[t * De + c + 1] = v1 + g.concat_b[c + 1];
-    });
-    __syncthreads();
-
-    if (!topa) {
-      // ---- external top-A: the packed values carry the ids
-      for (int e = tid; e < R * A; e += kTcThreads)
-        val_s[e] = e / A < n_rows ? g.vals[(size_t)row0 * A + e] : 0.f;
-    } else {
-      // ---- packed substep partial distances (K, R) and the exact top-A,
-      // as in the f32 kernel (f32 on the CUDA cores, same order of sums)
-      for (int e = tid; e < R * D; e += kTcThreads) rr_s[e] = rnd<true>(r_s[e]);
-      __syncthreads();
-      substep_rows(rr_s, R, D, g.sub_t, g.cn2, K, S_s);
-      __syncthreads();
-      top_a_rows(S_s, R, K, A, val_s);
-    }
-
-    // ---- the (row, slot) pairs, TM at a time; pair p = i * A + a
-    for (int p0 = 0; p0 < n_pairs; p0 += TM) {
-      const int rows = max(0, min(TM, n_valid - p0));
-      __syncthreads();  // vals are in; the region's last readers are done
-      // fetch the codewords, 8 bf16 a thread, 4 loads in flight
-      for (int e0 = tid; e0 < TM * (D / 8); e0 += 4 * kTcThreads) {
-        uint4 v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * kTcThreads, t = e / (D / 8), j = e - t * (D / 8);
-          v[u] = make_uint4(0, 0, 0, 0);
-          if (t < rows)
-            v[u] = *reinterpret_cast<const uint4*>(table + (size_t)unpack_id(val_s[p0 + t]) * Wt +
-                                                   8 * j);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * kTcThreads, t = e / (D / 8), j = e - t * (D / 8);
-          if (t < TM) *reinterpret_cast<uint4*>(cand_b + t * ldd + 8 * j) = v[u];
-        }
-      }
-      for (int e = tid; e < TM * kScoreSlots; e += kTcThreads) part_s[e] = 0.f;
-      if (g.wfold) {
-        mma_stage_bf16<MT>(
-            ring, cand_b, ldd, D, De, rows, h_b, ldh, nullptr, 0,
-            [&](int t, int c, float v0, float v1) {
-              const float* cb = ccb_s + min((p0 + t) / A, R - 1) * De + c;
-              return make_float2(v0 + cb[0], v1 + cb[1]);
-            },
-            NoLast{});
-      } else {
-        for (int e = tid; e < rows * (De / 2); e += kTcThreads) {
-          const int t = e / (De / 2), c = 2 * (e - t * (De / 2)), p = p0 + t;
-          const float2 hc = ld_bf2(table + (size_t)unpack_id(val_s[p]) * Wt + D + c);
-          const float* cb = ccb_s + (p / A) * De + c;
-          st_bf2(h_b + t * ldh + c, hc.x + cb[0], hc.y + cb[1]);
-        }
-      }
-      // d = ||r - out - cand||^2: each (t, c, c + 1) of out adds its two
-      // squares to its slot; out is the last product's output
-      auto score = [&](int t, int c, float o0, float o1) {
-        const float* r = r_s + ((p0 + t) / A) * D + c;
-        float d0 = r[0] - o0, d1 = r[1] - o1;
-        if (g.res) {
-          const float2 cv = ld_bf2(cand_b + t * ldd + c);
-          d0 -= cv.x;
-          d1 -= cv.y;
-        }
-        add_score(part_s, t, d0, d1);
-      };
-      if (proj) {
-        ffn_stages<MT>(ring, h_b, ldh, hid_b, ldf, g.L, De, Dh, rows, NoLast{});
-        mma_stage<MT>(ring, h_b, ldh, De, D, rows, score);
-      } else {
-        ffn_stages<MT>(ring, h_b, ldh, hid_b, ldf, g.L, De, Dh, rows, score);
-      }
-      __syncthreads();
-      if (!proj && g.L == 0)  // out = h, no product left to carry the sums
-        for (int e = tid; e < rows; e += kTcThreads)
-          for (int c = 0; c < D; c += 2) {
-            const float2 o = ld_bf2(h_b + e * ldh + c);
-            float* q = part_s + e * kScoreSlots;
-            const float* r = r_s + ((p0 + e) / A) * D + c;
-            float d0 = r[0] - o.x, d1 = r[1] - o.y;
-            if (g.res) {
-              const float2 cv = ld_bf2(cand_b + e * ldd + c);
-              d0 -= cv.x;
-              d1 -= cv.y;
-            }
-            *q = fmaf(d1, d1, fmaf(d0, d0, *q));
-          }
-      // ---- the slots' sums, packed with the slot's id
-      for (int t = tid; t < rows; t += kTcThreads) {
-        const int p = p0 + t;
-        g.out[(size_t)row0 * A + p] = pack_id(sum_score(part_s, t), unpack_id(val_s[p]));
-      }
-    }
-  }
-  ring.drain();
-}
-
 }  // namespace qt
 
 extern "C" int qt_selected_scores(const float* x, const float* xh, const float* vals,
@@ -493,8 +248,9 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
         (size_t)smem < SelectedLayout(a, tm, vals == nullptr).total || rows < 1 || rows > kRows ||
         (tm != 64 && tm != 128))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(tm == 128 ? tc::launch_tc(selected_scores_tc_kernel<4>, blocks, smem, s, a)
-                                      : tc::launch_tc(selected_scores_tc_kernel<2>, blocks, smem, s, a));
+    return static_cast<int>(
+        tm == 128 ? tc::launch_tc(selected_scores_tc_kernel<4, SelCut::kFull>, blocks, smem, s, a)
+                  : tc::launch_tc(selected_scores_tc_kernel<2, SelCut::kFull>, blocks, smem, s, a));
   }
   // f32: the plan's tile, rows a work item and shared memory, or nothing
   if (selected_stages(a) > f32::kMaxStages ||

@@ -22,7 +22,9 @@ versions and their wrappers (counterpart of
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its CUDA kernel (``qinco_torch/csrc/``) for a tensor on a CUDA device;
 there is no fallback from one to the other.  The kernels are compiled by
-``nvcc`` at first use into ``build/qinco_torch_kernels/`` and loaded with
+``nvcc`` at first use (the four together; the phase-breakdown cuts of
+``ops/breakdown.py`` apart, at their own first use) into
+``build/qinco_torch_kernels/`` and loaded with
 ``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
 
 Under bf16 every kernel runs its MLP products on the tensor cores.
@@ -61,8 +63,30 @@ _KERNELS = {
     "select_rebuild": ("select_rebuild.cu", 13, 17),
     "fused_substep_scores": ("fused_substep_scores.cu", 12, 19),
     "candidate_scores": ("candidate_scores.cu", 12, 15),
+    # the phase cuts of B2 and B4 (ops/breakdown.py)
+    "ktopa_variants": ("ktopa_variants.cu", 12, 15),
+    "fused_cuts": ("fused_cuts.cu", 12, 19),
 }
-LAUNCHES = {name: 0 for name in _KERNELS}
+# The libraries compiled together at the first use of any one of them: the
+# beam step's four, and the phase-breakdown cuts (ops/breakdown.py), which
+# the beam step never waits for.
+_BUILD_GROUPS = (("selected_scores", "select_rebuild", "fused_substep_scores",
+                  "candidate_scores"), ("ktopa_variants", "fused_cuts"))
+# The modes of scripts/ktopa_breakdown.py's ktopa_kernel and the cuts of
+# scripts/kernel_variants.py that ops/breakdown.py runs on the card.
+KTOPA_MODES = ("full", "noextract", "deferred", "mlponly", "nodist", "shell", "perslot",
+               "catfetch", "tournament")
+# deferred and catfetch move only where the TPU kernel builds its one-hot
+# fetch masks and how many products fetch; the card gathers by id after a
+# complete extraction, so they launch full's kernel and count as full.
+KTOPA_ALIASES = {"deferred": "full", "catfetch": "full"}
+KTOPA_KERNELS = tuple(m for m in KTOPA_MODES if m not in KTOPA_ALIASES)
+FUSED_CUTS = ("sel", "sel+fetch")
+# Kernel launches: the four beam-step kernels by name, the breakdown
+# kernels by wrapper and cut.
+LAUNCHES = {name: 0 for name in (
+    "selected_scores", "select_rebuild", "fused_substep_scores", "candidate_scores",
+    *(f"ktopa_variant:{m}" for m in KTOPA_KERNELS), *(f"fused_cut:{c}" for c in FUSED_CUTS))}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = [
@@ -271,7 +295,6 @@ def selected_scores_plain(
 
 
 def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int, vals):
-    rnd = rounder(spec)
     D = xh.shape[1]
     r = x.repeat_interleave(F_in, dim=0) - xh  # (NF, D) residual target
     if vals is None:
@@ -279,11 +302,18 @@ def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in:
         vals = torch.sort(packed, dim=1, stable=True).values[:, :n_codes]
     ids = unpack_ids(vals)  # (NF, A)
     tab = w.table.float()[ids.long()]  # (NF, A, Wt), dt-valued
-    cand = tab[..., :D]
+    h = _selected_h(spec, xh, w, tab)
+    return _score(spec, h, w.out_proj, r, tab[..., :D], ids)
+
+
+def _selected_h(spec, xh, w: _SelectedWeights, tab):
+    """The step MLP's h after the FFN blocks for the fetched table rows
+    ``tab (NF, A, Wt)`` of the beam rows ``xh``."""
+    rnd = rounder(spec)
+    D = xh.shape[1]
     ccb = rnd(xh) @ w.w2.float() + w.concat_b  # (NF, De)
-    h_cand = cand @ w.wfold.float() if w.wfold is not None else tab[..., D:]
-    h = _ffn(spec, rnd(h_cand + ccb[:, None, :]), w.ffn_up, w.ffn_down)
-    return _score(spec, h, w.out_proj, r, cand, ids)
+    h_cand = tab[..., :D] @ w.wfold.float() if w.wfold is not None else tab[..., D:]
+    return _ffn(spec, rnd(h_cand + ccb[:, None, :]), w.ffn_up, w.ffn_down)
 
 
 def selected_scores(
@@ -1009,10 +1039,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(name: str, like: torch.Tensor, tensors: list, ints: list) -> None:
+def _launch(name: str, like: torch.Tensor, tensors: list, ints: list,
+            count: Optional[str] = None) -> None:
     """Call ``qt_<name>`` on the current stream of ``like``'s device, with
     that device current (so the runtime's current device stays PyTorch's);
-    raise on a launch error, count the launch."""
+    raise on a launch error, count the launch under ``count`` (default
+    ``name``)."""
     lib = _lib(name, like.device)
     with torch.cuda.device(like.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(like.device).cuda_stream)
@@ -1020,7 +1052,7 @@ def _launch(name: str, like: torch.Tensor, tensors: list, ints: list) -> None:
     if err:
         msg = lib.qt_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def build_dir() -> Path:
@@ -1047,9 +1079,10 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, str]:
-    """Compile every kernel that has no up-to-date library yet, one
-    ``nvcc`` per source, all started together.  Returns each kernel's
+def build(names=None) -> dict[str, str]:
+    """Compile each kernel of ``names`` (default: every kernel) that has no
+    up-to-date library yet, one ``nvcc`` per source, all started together.
+    Returns each kernel's
     ``ptxas`` report (registers, spills, shared memory); empty for a
     library that was already built.  Ranks of a process group that build
     at once each compile into a name of their own (the pid) and rename it
@@ -1058,7 +1091,8 @@ def build() -> dict[str, str]:
     are checked in ``tests/test_torch_parallel.py``)."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (src, _, _) in _KERNELS.items():
+    for name in _KERNELS if names is None else names:
+        src = _KERNELS[name][0]
         lib = _lib_path(name)
         if lib.exists():
             continue
@@ -1083,14 +1117,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _lib(name: str, device: torch.device) -> ctypes.CDLL:
-    """The kernel's library, built and loaded at first use; raises unless
-    ``device`` is a Hopper card (sm_90)."""
+    """The kernel's library, built (with the others of its group) and
+    loaded at first use; raises unless ``device`` is a Hopper card (sm_90)."""
     major, minor = torch.cuda.get_device_capability(device)
     if (major, minor) != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; {device} is sm_{major}{minor}")
     if name in _LIBS:
         return _LIBS[name]
-    build()
+    build(next(group for group in _BUILD_GROUPS if name in group))
     lib = ctypes.CDLL(str(_lib_path(name)))
     _, n_ptr, n_int = _KERNELS[name]
     fn = getattr(lib, f"qt_{name}")

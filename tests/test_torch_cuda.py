@@ -2,7 +2,8 @@
 selected scores (in-kernel top-A and external vals, lean and folded
 tables), select-rebuild (with and without a low-rank concat factor),
 fused-substep scores (each table layout) and candidate scores (packed
-with a low-rank factor, unpacked at K = 1024); the bf16 tensor-core
+with a low-rank factor, unpacked at K = 1024); the phase-breakdown
+kernels of B2 and B4 (ops/breakdown.py, each mode or cut); the bf16 tensor-core
 kernels and the f32 kernels of all four with a ragged last work item, and
 the f32 kernels' repeatability.  Under bf16
 every kernel is its tensor-core route.  Then the determinism of the
@@ -32,7 +33,7 @@ import torch
 
 from qinco_torch.models.params import init_params
 from qinco_torch.models.spec import QincoSpec
-from qinco_torch.ops import kernels
+from qinco_torch.ops import breakdown, kernels
 from torch_exact import assert_near_exact, rebuild_exact
 
 # (widths, F_in, n_codes): a normal step, the IVF first step (F_in = 1,
@@ -165,6 +166,66 @@ def test_fused_substep_kernel_matches_plain(cuda, layout, case, dtype):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_substep_scores"] == before + 1
     _check_scores(got, kernels.fused_substep_scores_plain(spec, x, xh, p, n_codes), dtype)
+
+
+# The phase-breakdown kernels (ops/breakdown.py) at bf16, the lean fetch:
+# B2's cuts at the small widths with projections and at the qinco2-S and
+# -M widths, B4's at the small (with projections) and qinco2-S widths.
+BREAKDOWN_CASES = ["small_proj", "S", "M"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BREAKDOWN_CASES)
+@pytest.mark.parametrize("mode", kernels.KTOPA_MODES)
+def test_ktopa_variant_kernel_matches_plain(cuda, mode, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "bfloat16", seed=1, device=cuda)
+    x, xh = _inputs(spec, F_in, N=70, seed=2, device=cuda)
+    key = f"ktopa_variant:{kernels.KTOPA_ALIASES.get(mode, mode)}"
+    before = kernels.LAUNCHES[key]
+    got = breakdown.ktopa_variant(spec, x, xh, p, n_codes, mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    want = breakdown.ktopa_variant_plain(spec, x, xh, p, n_codes, mode)
+    if mode != "nodist":
+        _check_scores(got, want, "bfloat16")
+        return
+    # |sum(out + cand)| + 1 with slot a's id a: a bf16 rounding flip of an
+    # early block moves every term after it, which the signed sum does not
+    # damp as the distance's squares do, and the kernel and the plain
+    # version flip in their own places; so both are held against the sums
+    # exact to float64 (chip_smoke.compare_nodist)
+    assert torch.equal(kernels.unpack_ids(got), kernels.unpack_ids(want))
+    assert_near_exact(_unpacked(got), _unpacked(want),
+                      breakdown.nodist_exact(spec, x, xh, p, n_codes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small_proj", "S"])
+@pytest.mark.parametrize("cut", kernels.FUSED_CUTS)
+def test_fused_cut_kernel_matches_plain(cuda, cut, case):
+    widths, F_in, n_codes = CASES[case]
+    spec, p = _step(widths, "bfloat16", seed=5, device=cuda, fused_substep=True)
+    x, xh = _inputs(spec, F_in, N=70, seed=6, device=cuda)
+    key = f"fused_cut:{cut}"
+    before = kernels.LAUNCHES[key]
+    got = breakdown.fused_cut(spec, x, xh, p, n_codes, cut)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    want = breakdown.fused_cut_plain(spec, x, xh, p, n_codes, cut)
+    sel = breakdown.fused_cut(spec, x, xh, p, n_codes, "sel")
+    sel_p = breakdown.fused_cut_plain(spec, x, xh, p, n_codes, "sel")
+    # the bin minima are f32 sums in another order: ids equal wherever the
+    # bin's two least values are more than 1e-3 apart
+    w = kernels._fused_weights(spec, p)
+    packed = kernels._substep_packed(spec, x.repeat_interleave(F_in, 0) - xh, w.sub_t, w.cn2)
+    two = _unpacked(packed).view(len(xh), n_codes, -1).sort(dim=2).values[..., :2]
+    same = kernels.unpack_ids(sel) == kernels.unpack_ids(sel_p)
+    assert bool(same[two[..., 1] - two[..., 0] > 1e-3].all())
+    if cut == "sel":
+        got, want = _unpacked(got), _unpacked(want)
+    np.testing.assert_allclose(got[same].cpu(), want[same].cpu(),
+                               rtol=1e-4 if cut == "sel" else 1e-2, atol=1e-4)
 
 
 def _external_vals(spec, p, x, xh, F_in, n_codes):

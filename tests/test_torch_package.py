@@ -23,7 +23,8 @@ from qinco_tpu.models import spec as jspec
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "qinco_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "scripts/torch_ktopa_breakdown.py", "scripts/torch_kernel_variants.py",
+     "scripts/torch_scoring_times.py", "scripts/torch_timing.py"]
 
 
 def test_imports_with_jax_and_qinco_tpu_absent():
@@ -39,6 +40,7 @@ def test_imports_with_jax_and_qinco_tpu_absent():
         "import qinco_torch.logsys, qinco_torch.data, qinco_torch.__main__\n"
         "import qinco_torch.tasks.train_task, qinco_torch.tasks.eval_task\n"
         "import qinco_torch.ops.segment, qinco_torch.ops.aq, qinco_torch.tasks.search_tasks\n"
+        "import qinco_torch.ops.breakdown\n"
         "import qinco_torch.search, qinco_torch.search.index, qinco_torch.search.index_build\n"
         "import qinco_torch.search.pairwise_decoder, qinco_torch.search.search\n"
         "import qinco_torch.search.operating_points, qinco_torch.search.optim_order\n"
