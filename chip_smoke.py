@@ -176,7 +176,20 @@
      a step-sized buffer.
    One ``{"dist": ...}`` line; the group runs' launches join the kernel
    summary's counts.
-9. The smoke's total seconds (``smoke_s``), the kernel summary line (each
+9. Scale phase: ``scripts/torch_scale_regression.py`` in this process
+   (qinco2-S, parity) at ``SCALE_ARGS``, the reference's 10M-row, IVF 2^16
+   pipeline cut to a 2^18-row DB, 2^17 training rows, 1024 queries,
+   ivf_K = 4096, 10 k-means iterations and one epoch: its data, the exact
+   ground truth, ``ivf_centroids``, ``train``, the encodes of the training
+   set and the DB, ``build_index``, the validations, the pairwise decoder,
+   the search sweep and the Pareto check.  Every phase of the JAX
+   package's record (``SCALE_RECORD``) ran and the report has every key of
+   it; B2 and B3 launched exactly the counts the script expects in
+   training and in each encode, and no kernel outside a phase; R@1 at
+   nprobe 64, nshort 100 is at least ``SCALE_MIN_R1``.  One ``{"scale":
+   ...}`` line: the phases' seconds, the operating points, the launches
+   and peak device memory of each phase.
+10. The smoke's total seconds (``smoke_s``), the kernel summary line (each
    kernel's numbers at its qinco2-S main shape, its launches over every
    phase; the breakdown kernels' at the breakdown phase's shapes, ``ms``
    their device ms a launch, their launches on the entry scripts' run,
@@ -296,6 +309,15 @@ TWO_STAGE_TRAIN, TWO_STAGE_VAL, TWO_STAGE_DB, TWO_STAGE_QUERIES = 1 << 18, 10_00
 TWO_STAGE_NSHORT = (100, 1000)
 PQ_D, PQ_TRAIN, PQ_VAL, PQ_DB, PQ_QUERIES = 256, 1 << 17, 10_000, 1 << 18, 1000
 PQ_ARGS = ["pq_parts=2", "opq=true", "M=16", "K=256", "L=2", "de=128", "dh=256", "A=0", "B=1"]
+
+# Scale phase: scripts/torch_scale_regression.py (qinco2-S, parity) with the
+# reference's 10M-row pipeline cut to these sizes; the least R@1 at nprobe
+# 64, nshort 100; the JAX package's record of the full run, whose report
+# keys and phases the port's report must have.
+SCALE_ARGS = ["--db-size", "262144", "--train-size", "131072", "--nq", "1024",
+              "--ivf-k", "4096", "--kmeans-iters", "10", "--epochs", "1"]
+SCALE_MIN_R1 = 0.95
+SCALE_RECORD = ROOT / "bench_artifacts" / "scale_report_v4_2026-08-20.json"
 
 # kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
@@ -1241,6 +1263,21 @@ def variant_checks(seed: int, device, tkv) -> dict:
     return res
 
 
+def selected_ko_check(tkv, seed: int, device) -> dict:
+    """B2' (external vals, the lean table) as ``selected-ko`` runs it, on
+    the script's operands: the kernel against its plain version at B2's
+    bf16 limits, the plain version's ms and the bound."""
+    case = tkv.Case(tkv.N, device, seed)
+    spec, vals = tkv.SPEC.with_(fused_substep=False), case.vals()
+    args = (spec, case.x, case.xh, case.p, spec.A, vals)
+    plain = lambda: kernels.selected_scores_plain(*args)  # noqa: E731
+    err = compare_scores("selected-ko", kernels.selected_scores(*args), plain(), "bfloat16")
+    b_ms, b_by = bound_ms(*selected_work(spec, tkv.N, spec.B, spec.A, 2, external=True),
+                          "bfloat16")
+    return dict(max_abs_err=err, plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def breakdown_phase(seed: int, device) -> dict:
     """The phase-breakdown kernels (``qinco_torch.ops.breakdown``): B2's
     kernels (``kernels.KTOPA_KERNELS``) at the script's N = 1024 and B4's
@@ -1361,7 +1398,8 @@ def breakdown_phase(seed: int, device) -> dict:
                "rest_share": 1 - k4["sel+fetch"] / prod4,
                "mlponly_share": k4["mlponly"] / prod4, "fullopt_share": k4["fullopt"] / prod4,
                "noop_over_sel": k4["noop@rt256"] / sel, "bw_f32_over_sel": k4["bw_f32@rt512"] / sel,
-               "selcat_over_selected_ko": k4["selcat"] / k4["selected-ko"]},
+               "selcat_over_selected_ko": k4["selcat"] / k4["selected-ko"],
+               "selected_ko": selected_ko_check(tkv, seed, device)},
         "launches": {k: v for k, v in launches.items() if v}}
     emit({"breakdown": line})
     return dict(kernels=res, launches=launches)
@@ -1893,6 +1931,44 @@ def search_phase(seed: int, device, workdir: Path) -> dict:
     return res
 
 
+def scale_phase(workdir: Path) -> dict:
+    """The scale phase (item 9 of the docstring); returns its JSON record
+    with its kernel launches."""
+    tsr = load_script("torch_scale_regression")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        report = tsr.main(["--out", str(workdir), *SCALE_ARGS])
+    sec = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    record = json.loads(SCALE_RECORD.read_text())
+    missing = sorted(set(record) - set(report))
+    check(not missing, f"scale: the report lacks the JAX report's keys {missing}")
+    missing = sorted(set(record["phases"]) - set(report["phases"]))
+    check(not missing, f"scale: phases {missing} did not run")
+    expected = report["expected_launches"]
+    check(sorted(expected) == ["encode_db", "encode_trainset", "train"],
+          f"scale: launch counts checked for {sorted(expected)}")
+    for name, want in expected.items():
+        check(report["launches"][name] == want,
+              f"scale {name}: launches {report['launches'][name]}, expected {want}")
+    phase_sum = {k: sum(run.get(k, 0) for run in report["launches"].values()) for k in launches}
+    check(phase_sum == launches, f"scale: launches {launches} outside the phases {phase_sum}")
+    points = [dict(**p["parameters"], **{k: p[k] for k in ("R@1", "R@10", "R@100", "t_total")})
+              for p in report["operating_points"]]
+    r1 = [p["R@1"] for p in points if p["nprobe"] == 64 and p["nshort"] == 100]
+    check(r1 and max(r1) >= SCALE_MIN_R1,
+          f"scale: R@1 at nprobe 64, nshort 100 is {r1}, expected >= {SCALE_MIN_R1}")
+    res = dict(args=SCALE_ARGS, s=sec, phases=report["phases"], points=points,
+               launches=report["launches"], peak_device_bytes=report["peak_device_bytes"],
+               **{k: report[k] for k in ("kmeans_sample_mse", "encode_db_vecs_per_s",
+                                         "hnsw_vs_exact_coarse_recall@16",
+                                         "int8_norm_rel_err", "pareto_prior")})
+    emit({"scale": res})
+    return dict(res, launches=launches)
+
+
 def reference_state(params: QincoParams, spec, mstate=None) -> dict:
     """``params`` as a reference ``.pt`` state dict, the layout that
     ``task=convert`` reads: torch Linear weights are (out, in), so the
@@ -2340,6 +2416,11 @@ def main() -> None:
         with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
             legacy = legacy_phase(seed, device, Path(tmp), Path(train_dir))
     for k, v in legacy["launches"].items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+        scale = scale_phase(Path(tmp))
+    for k, v in scale["launches"].items():
         launches[k] += v
 
     emit({"smoke_s": time.perf_counter() - t_start})

@@ -24,7 +24,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "qinco_torch").rglob("*.py")
 ) + ["chip_smoke.py", "scripts/torch_ktopa_breakdown.py", "scripts/torch_kernel_variants.py",
-     "scripts/torch_scoring_times.py", "scripts/torch_timing.py"]
+     "scripts/torch_scoring_times.py", "scripts/torch_timing.py",
+     "scripts/torch_scale_regression.py", "scripts/torch_trained_mse_check.py"]
 
 
 def test_imports_with_jax_and_qinco_tpu_absent():
@@ -101,6 +102,23 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("script", ["torch_scale_regression", "torch_trained_mse_check"])
+def test_scale_scripts_refuse_to_start_without_a_card(monkeypatch, tmp_path, script):
+    """Without a card and without ``--device cpu`` the scale scripts stop
+    before they write anything."""
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(script, ROOT / "scripts" / f"{script}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit, match="--device cpu"):
+        mod.main(["--out", str(out)] if script == "torch_scale_regression" else
+                 ["--dir", str(out)])
+    assert not out.exists()
 
 
 OVERRIDES = [
