@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import kernels
 from ..ops.distances import (
     batch_sqdist_partial,
@@ -305,7 +306,8 @@ def encode(
     over every data-parallel rank's rows (``_target_stats``)."""
     x = x.float()
     if spec.ivf_in_use:
-        codes0, _ = chunked_argmin(x, params.codebook0, chunk=ivf_chunk, fast=spec.fast)
+        with tracing.span("encode.ivf"):
+            codes0, _ = chunked_argmin(x, params.codebook0, chunk=ivf_chunk, fast=spec.fast)
         codes0 = codes0[:, None]  # (N, 1): the beam enters the MLP chain at 1
     else:
         codes0, _ = sqdist_topk(x, params.codebook0, spec.beam0)  # (N, beam0)
@@ -335,10 +337,11 @@ def encode_from_coarse(
 
     reals, pars, means, stds = [], [], [], []
     for i in range(Ms):
-        xhat, real, par, (m, s) = _beam_step(
-            spec, params.step(i), x, xhat, F_out=spec.B,
-            n_codes=spec.n_codes_at(i), w=weights, want_stats=want_stats, reduce=reduce,
-        )
+        with tracing.span("encode.step", step_i=i):
+            xhat, real, par, (m, s) = _beam_step(
+                spec, params.step(i), x, xhat, F_out=spec.B,
+                n_codes=spec.n_codes_at(i), w=weights, want_stats=want_stats, reduce=reduce,
+            )
         reals.append(real)
         pars.append(par)
         means.append(m)
@@ -349,19 +352,20 @@ def encode_from_coarse(
     # Under approx_beam the winner is re-picked by an exact argmin of the
     # B survivors' f32 distances, as the JAX package does after its
     # approximate per-step top-k (the port's per-step top-k is exact).
-    if spec.approx_beam:
-        d_fin = ((x[:, None, :] - xhat) ** 2).sum(-1)  # (N, F)
-        beam = torch.argmin(d_fin, dim=1, keepdim=True)  # first minimum
-        xhat = torch.gather(xhat, 1, beam[..., None].expand(N, 1, D))
-    else:
-        beam = torch.zeros((N, 1), dtype=torch.long, device=x.device)
-    rows = []
-    for real, par in zip(reversed(reals), reversed(pars)):
-        rows.append(torch.gather(real, 1, beam)[:, 0])
-        beam = torch.gather(par, 1, beam).long()
-    rows.append(torch.gather(codes0.int(), 1, beam)[:, 0])
-    codes = torch.stack(rows[::-1])  # (M_ivf, N)
-    return codes, xhat[:, 0], EncodeStats(torch.stack(means), torch.stack(stds))
+    with tracing.span("encode.backtrace"):
+        if spec.approx_beam:
+            d_fin = ((x[:, None, :] - xhat) ** 2).sum(-1)  # (N, F)
+            beam = torch.argmin(d_fin, dim=1, keepdim=True)  # first minimum
+            xhat = torch.gather(xhat, 1, beam[..., None].expand(N, 1, D))
+        else:
+            beam = torch.zeros((N, 1), dtype=torch.long, device=x.device)
+        rows = []
+        for real, par in zip(reversed(reals), reversed(pars)):
+            rows.append(torch.gather(real, 1, beam)[:, 0])
+            beam = torch.gather(par, 1, beam).long()
+        rows.append(torch.gather(codes0.int(), 1, beam)[:, 0])
+        codes = torch.stack(rows[::-1])  # (M_ivf, N)
+        return codes, xhat[:, 0], EncodeStats(torch.stack(means), torch.stack(stds))
 
 
 @torch.no_grad()
@@ -402,40 +406,53 @@ def encode_chunked(
     queued.  Returns codes ``(M_ivf, N)`` int32.  ``mesh`` routes step 0
     through the sharded IVF book (see :func:`encode_raw`): every rank of
     the model group must pass the same ``x``, so that all run the same
-    chunks in the same order."""
+    chunks in the same order.
+
+    Each chunk is the span ``encode.chunk`` (:mod:`qinco_torch.tracing`),
+    which holds its ``encode.upload``, its encode, its ``encode.download``
+    and the ``encode.wait`` for the chunk before (the last chunk waits for
+    its own codes too)."""
     device = params.codebook0.device
     pin = device.type == "cuda"
     n = len(x)
     bs = batch or default_encode_batch(spec, enc_max_bs)
     out = np.empty((spec.M_ivf, n), dtype=np.int32)
-    pending = None  # (start, n_valid, host codes, copy event) of the chunk in flight
+    pending = None  # (chunk, start, n_valid, host codes, copy event) of the chunk in flight
 
     def drain():
-        i, n_valid, host, event = pending
-        if event is not None:
-            event.synchronize()
+        c, i, n_valid, host, event = pending
+        with tracing.span("encode.wait", chunk=c):
+            if event is not None:
+                event.synchronize()
         out[:, i:i + n_valid] = host.numpy()[:, :n_valid]
 
-    for i in range(0, n, bs):
-        chunk = np.array(x[i:i + bs], dtype=np.float32)  # a writable copy of a memmap slice
-        n_valid = len(chunk)
-        if n_valid < bs:
-            chunk = np.concatenate([chunk, np.zeros((bs - n_valid, chunk.shape[1]), np.float32)])
-        xc = torch.from_numpy(chunk)
-        if pin:
-            xc = xc.pin_memory()
-        codes = encode_raw(params, spec, xc.to(device, non_blocking=True), mesh=mesh)
-        host = torch.empty(codes.shape, dtype=torch.int32, pin_memory=pin)
-        host.copy_(codes, non_blocking=True)
-        event = None
-        if pin:
-            event = torch.cuda.Event()
-            event.record()
-        if pending is not None:
-            drain()
-        pending = (i, n_valid, host, event)
-    if pending is not None:
-        drain()
+    for c, i in enumerate(range(0, n, bs)):
+        n_valid = min(bs, n - i)
+        with tracing.span("encode.chunk", chunk=c, rows=n_valid, pad_rows=bs - n_valid):
+            with tracing.span("encode.upload"):
+                # a writable copy of a memmap slice
+                chunk = np.array(x[i:i + bs], dtype=np.float32)
+                if n_valid < bs:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((bs - n_valid, chunk.shape[1]), np.float32)])
+                xc = torch.from_numpy(chunk)
+                if pin:
+                    xc = xc.pin_memory()
+                    tracing.count("io.h2d_bytes", xc.nbytes)
+                xd = xc.to(device, non_blocking=True)
+            codes = encode_raw(params, spec, xd, mesh=mesh)
+            with tracing.span("encode.download"):
+                host = torch.empty(codes.shape, dtype=torch.int32, pin_memory=pin)
+                host.copy_(codes, non_blocking=True)
+                event = None
+                if pin:
+                    event = torch.cuda.Event()
+                    event.record()
+            if pending is not None:
+                drain()
+            pending = (c, i, n_valid, host, event)
+            if i + bs >= n:
+                drain()
     return out
 
 

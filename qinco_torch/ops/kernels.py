@@ -25,7 +25,10 @@ there is no fallback from one to the other.  The kernels are compiled by
 ``nvcc`` at first use (the four together; the phase-breakdown cuts of
 ``ops/breakdown.py`` apart, at their own first use) into
 ``build/qinco_torch_kernels/`` and loaded with
-``ctypes``.  :data:`LAUNCHES` counts the kernel launches.
+``ctypes``.  :data:`LAUNCHES` (the recorder's always-on launch counters,
+:mod:`qinco_torch.tracing`) counts the kernel launches, and each beam-step
+wrapper's CUDA path (weight operands, plan, launch) is the span
+``kernels.<name>``.
 
 Under bf16 every kernel runs its MLP products on the tensor cores.
 Under float32 every kernel runs them on the CUDA cores in IEEE f32 FFMA
@@ -54,6 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..models.spec import QincoSpec
 
 # name -> (source, pointer arguments, int arguments) of the C entry point
@@ -91,11 +95,12 @@ FUSED_KERNELS = tuple(c for c in FUSED_CUTS if c not in FUSED_ALIASES)
 # The streaming probes (ops/breakdown.py's stream_probe), by kind and input.
 STREAM_PROBES = ("noop", "bw_f32", "bw_bf16")
 # Kernel launches: the four beam-step kernels by name, the breakdown
-# kernels by wrapper and cut.
-LAUNCHES = {name: 0 for name in (
+# kernels by wrapper and cut (the recorder's launch counter group).
+LAUNCHES = tracing.LAUNCHES
+LAUNCHES.update({name: 0 for name in (
     "selected_scores", "select_rebuild", "fused_substep_scores", "candidate_scores",
     *(f"ktopa_variant:{m}" for m in KTOPA_KERNELS), *(f"fused_cut:{c}" for c in FUSED_KERNELS),
-    "selcat", *(f"stream_probe:{k}" for k in STREAM_PROBES))}
+    "selcat", *(f"stream_probe:{k}" for k in STREAM_PROBES))})
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = [
@@ -332,28 +337,30 @@ def selected_scores(
     """Selected-scores kernel on a CUDA tensor, its plain version
     (:func:`selected_scores_plain`, same contract) on a CPU tensor."""
     F_in = _check_selected(spec, x, xh, p, n_codes, vals)
-    w = _selected_weights(spec, p)
     if xh.device.type == "cpu":
-        return _selected_scores_plain(spec, x, xh, w, n_codes, F_in, vals)
-    _require_cuda(xh)
-    NF, D = xh.shape
-    K, Wt = w.table.shape
-    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
-    A = n_codes
-    stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
-    plan = selected_plan(NF, A, D, K, De, Dh, bf16=bool(_is_bf16(spec)), topa=vals is None,
-                         stages=stages, sms=_sm_count(xh.device))
-    if not _is_bf16(spec):
-        w = w._replace(**{f: blocked(getattr(w, f))
-                          for f in ("wfold", "w2", "ffn_up", "ffn_down", "out_proj")})
-    out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
-    _launch("selected_scores", xh,
-            [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
-             w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
-             w.out_proj, out],
-            [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
-             plan.smem, _is_bf16(spec), _res(spec)])
-    return out
+        return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in,
+                                      vals)
+    with tracing.span("kernels.selected_scores"):
+        _require_cuda(xh)
+        w = _selected_weights(spec, p)
+        NF, D = xh.shape
+        K, Wt = w.table.shape
+        De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
+        A = n_codes
+        stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
+        plan = selected_plan(NF, A, D, K, De, Dh, bf16=bool(_is_bf16(spec)), topa=vals is None,
+                             stages=stages, sms=_sm_count(xh.device))
+        if not _is_bf16(spec):
+            w = w._replace(**{f: blocked(getattr(w, f))
+                              for f in ("wfold", "w2", "ffn_up", "ffn_down", "out_proj")})
+        out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
+        _launch("selected_scores", xh,
+                [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
+                 w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
+                 w.out_proj, out],
+                [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
+                 plan.smem, _is_bf16(spec), _res(spec)])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -480,14 +487,15 @@ def fused_substep_scores(
     """Fused-substep kernel on a CUDA tensor, its plain version
     (:func:`fused_substep_scores_plain`, same contract) on a CPU tensor."""
     F_in = _check_fused(spec, x, xh, p, n_codes)
-    w = _fused_weights(spec, p)
     if xh.device.type == "cpu":
-        return _fused_substep_plain(spec, x, xh, w, n_codes, F_in)
-    _require_cuda(xh)
-    if _is_bf16(spec):
-        w = _pad_fused_rank(w)
-    plan = _fused_launch_plan(spec, xh, w, n_codes, p.in_proj is not None)
-    return _fused_launch(spec, x, xh, w, n_codes, F_in, plan)
+        return _fused_substep_plain(spec, x, xh, _fused_weights(spec, p), n_codes, F_in)
+    with tracing.span("kernels.fused_substep_scores"):
+        _require_cuda(xh)
+        w = _fused_weights(spec, p)
+        if _is_bf16(spec):
+            w = _pad_fused_rank(w)
+        plan = _fused_launch_plan(spec, xh, w, n_codes, p.in_proj is not None)
+        return _fused_launch(spec, x, xh, w, n_codes, F_in, plan)
 
 
 def _fused_layout(w: _FusedWeights) -> str:
@@ -625,13 +633,14 @@ def candidate_scores(
     if xh.device.type == "cpu":
         return candidate_scores_plain(spec, x, xh, idx, p, pack_ids)
     _check_candidate(spec, x, xh, idx, p, pack_ids)
-    _require_cuda(xh)
-    w = _chain_weights(spec, p)
-    if _is_bf16(spec):
-        w = pad_rank(w)
-    book = p.codebook.to(_compute_dtype(spec)).contiguous()
-    plan = _candidate_launch_plan(spec, xh, idx, w)
-    return _candidate_launch(spec, x, xh, idx, book, w, pack_ids, plan)
+    with tracing.span("kernels.candidate_scores"):
+        _require_cuda(xh)
+        w = _chain_weights(spec, p)
+        if _is_bf16(spec):
+            w = pad_rank(w)
+        book = p.codebook.to(_compute_dtype(spec)).contiguous()
+        plan = _candidate_launch_plan(spec, xh, idx, w)
+        return _candidate_launch(spec, x, xh, idx, book, w, pack_ids, plan)
 
 
 def _candidate_launch_plan(spec: QincoSpec, xh, idx, w: _ChainWeights) -> LaunchPlan:
@@ -730,29 +739,30 @@ def select_rebuild(
     if dists.device.type == "cpu":
         return select_rebuild_plain(spec, dists, xh, p, A_eff, F_out)
     F_in = _check_rebuild(spec, dists, xh, p, A_eff, F_out)
-    _require_cuda(xh)
-    bf16 = bool(_is_bf16(spec))
-    w = _chain_weights(spec, p)
-    if bf16:
-        w = pad_rank(w)
-    De, Dh, Wc, lr = _chain_dims(spec, w)
-    N, C = dists.shape
-    D, K = spec.D, p.codebook.shape[0]
-    stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
-    plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr), stages=stages,
-                        sms=_sm_count(xh.device))
-    if not bf16:
-        w = w._replace(**{f: blocked(getattr(w, f)) for f in ("in_proj", "concat_w", "concat_w2",
-                                                              "ffn_up", "ffn_down", "out_proj")})
-    xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
-    codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
-    parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
-    _launch("select_rebuild", xh,
-            [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
-             *_chain_ptrs(w), xhat, codes, parents],
-            [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, plan.tm, plan.per_item,
-             plan.blocks, plan.smem, int(bf16), _res(spec)])
-    return xhat, codes, parents
+    with tracing.span("kernels.select_rebuild"):
+        _require_cuda(xh)
+        bf16 = bool(_is_bf16(spec))
+        w = _chain_weights(spec, p)
+        if bf16:
+            w = pad_rank(w)
+        De, Dh, Wc, lr = _chain_dims(spec, w)
+        N, C = dists.shape
+        D, K = spec.D, p.codebook.shape[0]
+        stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
+        plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr),
+                            stages=stages, sms=_sm_count(xh.device))
+        if not bf16:
+            w = w._replace(**{f: blocked(getattr(w, f)) for f in (
+                "in_proj", "concat_w", "concat_w2", "ffn_up", "ffn_down", "out_proj")})
+        xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
+        codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
+        parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
+        _launch("select_rebuild", xh,
+                [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
+                 *_chain_ptrs(w), xhat, codes, parents],
+                [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, plan.tm, plan.per_item,
+                 plan.blocks, plan.smem, int(bf16), _res(spec)])
+        return xhat, codes, parents
 
 
 def blocked(w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

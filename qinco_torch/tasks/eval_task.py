@@ -2,14 +2,23 @@
 (``eval_time``) (counterpart of ``qinco_tpu/tasks/eval_task.py``).
 ``eval_time`` reports μs per vector after a warm-up, with device syncs
 around each encode and decode; with ``profile_dir`` it also writes a
-``torch.profiler`` trace there.  Over a process group each data group
+``torch.profiler`` trace there (``trace.json``) and, beside it, the
+program's own spans and counters recorded under the profiler
+(``spans.json``, :func:`qinco_torch.tracing.export`: a Chrome trace on
+the same clock, ``ts`` in µs after the profiler trace's start, which
+``otherData.trace_start_ns`` gives; the encode's ``encode.ivf``,
+``encode.step``, ``encode.backtrace``, the kernel wrappers'
+``kernels.*`` and the uploads' ``io.upload``, the counters under
+``otherData.counters``).  Over a process group each data group
 evaluates its shard of the database, the MSE is the global one, and each
-rank writes its own trace (``trace_rank<r>.json``)."""
+rank writes its own trace and spans (``trace_rank<r>.json``,
+``spans_rank<r>.json``)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
+from .. import tracing
 from ..data.datasets import load_vec_db
 from ..train.loop import compute_mse
 from .base import BaseTask
@@ -41,11 +50,13 @@ class EvalTask(BaseTask):
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
+            tracing.clear()
             with profile(activities=activities) as prof:
                 mse = _run()
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
-            name = f"trace_rank{self.mesh.rank}.json" if self.mesh.grouped else "trace.json"
-            prof.export_chrome_trace(str(Path(profile_dir) / name))
+            rank = f"_rank{self.mesh.rank}" if self.mesh.grouped else ""
+            prof.export_chrome_trace(str(Path(profile_dir) / f"trace{rank}.json"))
+            tracing.export(Path(profile_dir) / f"spans{rank}.json")
             self.print(f"Wrote profiler trace to {profile_dir}")
         else:
             mse = _run()

@@ -31,12 +31,14 @@ Without a group every reduction is the identity.
 
 from __future__ import annotations
 
+import itertools
 from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.params import ModelState, QincoParams, StepParams, param_leaves
 from ..models.qinco import encode, train_losses
 from ..models.spec import QincoSpec
@@ -101,10 +103,14 @@ def _micro_batch_pass(spec: QincoSpec, params, leaves, mstate: ModelState, x, we
     ``(grads·n, (total·n, losses·n), n, codes, mstate, (usage0_inc,
     usage_inc))``.  ``reduce`` sums a list of tensors over the
     data-parallel ranks (the identity in one process)."""
-    codes, _, stats = encode(params, spec, x, weights=weights, want_stats=True, reduce=reduce)
-    total, aux = train_losses(params, spec, x, codes, weights)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    with torch.no_grad():
+    with tracing.span("train.encode"):
+        codes, _, stats = encode(params, spec, x, weights=weights, want_stats=True,
+                                 reduce=reduce)
+    with tracing.span("train.losses"):
+        total, aux = train_losses(params, spec, x, codes, weights)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    with torch.no_grad(), tracing.span("train.stats"):
         nv = weights.sum()
         nv_all, x_sum = reduce([nv.clone(), (x * weights[:, None]).sum(0)])
         # a fully padded micro-batch (the accumulation tail) moves no EMA
@@ -140,11 +146,18 @@ def make_train_step(spec: QincoSpec, opt: torch.optim.Optimizer, grad_clip: floa
     and ``(accum, N)``.  Nothing in the step reads a value back to the
     host.  With a ``mesh`` that has a process group, ``batch`` is this
     rank's share of the global batch and the step is the step on the
-    global batch (see the module docstring); ``codes`` are this rank's."""
+    global batch (see the module docstring); ``codes`` are this rank's.
+    Each call is the span ``train.step`` (:mod:`qinco_torch.tracing`), its
+    id ``step`` the call's count, holding the phases' spans."""
     leaves = _opt_params(opt)
     reduce = partial(all_reduce_sum, mesh, axis="data")  # the identity without a group
+    steps = itertools.count()
 
     def train_step(params: QincoParams, mstate: ModelState, batch, weights):
+        with tracing.span("train.step", step=next(steps)):
+            return _step(params, mstate, batch, weights)
+
+    def _step(params: QincoParams, mstate: ModelState, batch, weights):
         x_all = (batch - params.data_mean.detach()) / params.data_std.detach()
         if accum == 1:
             grads, (total, losses), nv, codes, mstate, usage = _micro_batch_pass(
@@ -171,7 +184,7 @@ def make_train_step(spec: QincoSpec, opt: torch.optim.Optimizer, grad_clip: floa
             n_sum = torch.stack(nvs).sum()
             codes = torch.cat(all_codes, dim=1)  # (M_ivf, accum·N)
 
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("train.clip"):
             keys = sorted(losses)  # one f32 and one int64 all-reduce
             out = reduce([*grads, total, *(losses[k] for k in keys), n_sum, *usage])
             n = len(grads)
@@ -186,8 +199,9 @@ def make_train_step(spec: QincoSpec, opt: torch.optim.Optimizer, grad_clip: floa
                 a.grad = g.clamp_(-grad_clip, grad_clip) if grad_clip else g
             total = total / n_total
             losses = {k: v / n_total for k, v in losses.items()}
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        with tracing.span("train.optimizer"):
+            opt.step()
+            opt.zero_grad(set_to_none=True)
         return params, mstate, TrainStepOutput(total, losses, codes)
 
     return train_step

@@ -11,6 +11,8 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
@@ -35,11 +37,14 @@ def sync(device: torch.device) -> None:
 def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A float32 copy of host array ``a`` (a memmap slice, say) on
     ``device``; to a card through pinned memory, without blocking the
-    host."""
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    host.  The span ``io.upload`` (:mod:`qinco_torch.tracing`) holds the
+    bytes copied."""
+    with tracing.span("io.upload", bytes=int(np.size(a)) * 4):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        if device.type == "cuda":
+            tracing.count("io.h2d_bytes", t.nbytes)
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
 
 def format_time(t: float) -> str:
