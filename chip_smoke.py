@@ -412,9 +412,11 @@ F32_TILED = {
 
 def design(name: str, dtype: str) -> str:
     """How a kernel computes its MLP products: on the tensor cores under
-    bf16, in f32 on the CUDA cores under f32, through the shared-memory
-    weight ring and register tiles."""
+    bf16 (B2 on wgmma, the others on mma.sync), in f32 on the CUDA cores
+    under f32, through the shared-memory weight ring and register tiles."""
     if dtype == "bfloat16":
+        if name == "selected_scores":
+            return "tensor cores (wgmma, bulk-copy weight ring, clusters)"
         return "tensor cores (mma.sync)"
     return f"cuda cores f32 (bulk-copy weight ring, register-tiled FFMA: {F32_TILED[name]})"
 

@@ -53,25 +53,22 @@
 
 namespace qt {
 
-template <int MT>
-cudaError_t launch_cut(int cut, int blocks, int smem, cudaStream_t s, const SelectedArgs& a) {
+template <int NW>
+cudaError_t launch_cut(int cut, int blocks, int smem, int cluster, cudaStream_t s,
+                       const SelectedArgs& a) {
   switch (static_cast<SelCut>(cut)) {
-    case SelCut::kFull:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kFull>, blocks, smem, s, a);
-    case SelCut::kNoExtract:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kNoExtract>, blocks, smem, s, a);
-    case SelCut::kMlpOnly:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kMlpOnly>, blocks, smem, s, a);
-    case SelCut::kNoDist:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kNoDist>, blocks, smem, s, a);
-    case SelCut::kShell:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kShell>, blocks, smem, s, a);
-    case SelCut::kPerSlot:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kPerSlot>, blocks, smem, s, a);
-    case SelCut::kTournament:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kTournament>, blocks, smem, s, a);
-    case SelCut::kSelCat:
-      return tc::launch_tc(selected_scores_tc_kernel<MT, SelCut::kSelCat>, blocks, smem, s, a);
+#define QT_CUT(C)                                                                            \
+  case SelCut::C:                                                                            \
+    return launch_selected(selected_scores_tc_kernel<NW, SelCut::C>, blocks, smem, cluster, s, a);
+    QT_CUT(kFull)
+    QT_CUT(kNoExtract)
+    QT_CUT(kMlpOnly)
+    QT_CUT(kNoDist)
+    QT_CUT(kShell)
+    QT_CUT(kPerSlot)
+    QT_CUT(kTournament)
+    QT_CUT(kSelCat)
+#undef QT_CUT
   }
   return cudaErrorInvalidValue;
 }
@@ -80,15 +77,15 @@ cudaError_t launch_cut(int cut, int blocks, int smem, cudaStream_t s, const Sele
 
 // cut: a SelCut value (0 full .. 7 selcat).  At bf16; the in-kernel top-A
 // route (vals null) for every cut but selcat, which takes the external
-// packed vals (NF, A), no wfold, and (R, D) f32 of shared memory past the
-// layout's end.
+// packed vals (NF, A), no wfold, and (R, D) f32 at the end of the shared
+// memory.
 extern "C" int qt_ktopa_variants(const float* x, const float* xh, const float* vals,
                                  const float* sub_t, const float* cn2, const void* table,
                                  const void* wfold, const void* w2, const float* concat_b,
                                  const void* ffn_up, const void* ffn_down, const void* out_proj,
                                  float* out, int NF, int F_in, int D, int K, int De, int Dh, int L,
-                                 int A, int Wt, int tm, int rows, int blocks, int smem, int res,
-                                 int cut, void* stream) {
+                                 int A, int Wt, int tm, int rows, int blocks, int smem,
+                                 int cluster, int res, int cut, void* stream) {
   using namespace qt;
   if (NF == 0) return 0;
   const bool selcat = cut == static_cast<int>(SelCut::kSelCat);
@@ -96,15 +93,15 @@ extern "C" int qt_ktopa_variants(const float* x, const float* xh, const float* v
                        concat_b, ffn_up, ffn_down, out_proj, out, NF, F_in, D, K, De,
                        Dh,     L,        A,        Wt,    res, rows};
   const bool tournament = cut == static_cast<int>(SelCut::kTournament);
-  const size_t need = selcat ? SelectedLayout(a, tm, false).total +
-                                   tc::align16(4 * (size_t)rows * D)
-                             : SelectedLayout(a, tm, true).total;
+  const size_t extra = selcat ? tc::align16(4 * (size_t)rows * D) : 0;
   if (cut < 0 || cut > static_cast<int>(SelCut::kSelCat) || K > 256 || A < 1 ||
       (!selcat && A > K) || (selcat && (vals == nullptr || wfold != nullptr)) ||
       (tournament && (K % A || A > 32 || K / A > 32)) || selected_stages(a) > tc::kMaxStages ||
-      (size_t)smem < need || rows < 1 || rows > kRows || (tm != 64 && tm != 128))
+      SelectedLayout(a, tm, !selcat).slots(smem, extra) < wg::kMinRing || rows < 1 ||
+      rows > kRows || (tm != 64 && tm != 128) || (cluster != 1 && cluster != 2 && cluster != 4) ||
+      blocks < cluster || blocks % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(tm == 128 ? launch_cut<4>(cut, blocks, smem, s, a)
-                                    : launch_cut<2>(cut, blocks, smem, s, a));
+  return static_cast<int>(tm == 128 ? launch_cut<2>(cut, blocks, smem, cluster, s, a)
+                                    : launch_cut<1>(cut, blocks, smem, cluster, s, a));
 }

@@ -38,8 +38,24 @@
 // and a warp-per-row min-and-remove give the exact top-A on the CUDA cores
 // in f32 on both routes, so the candidate set and its order are the same.
 //   bf16 (the parity profile): selected_scores_tc_kernel (selected_tc.cuh,
-//   its full cut), every MLP product on the tensor cores (tc.cuh),
-//   activations bf16 in shared memory, the weights filled by cp.async.
+//   its full cut), every MLP product on wgmma (wgmma.cuh), activations
+//   and weights both in shared memory in the core-matrix layout, the
+//   weights (in the slab layout of kernels.wg_blocked) streamed through a
+//   ring of 4 to 16 slabs of 64 x 128 bf16 by bulk copies from four
+//   producer threads, with full and empty mbarriers and no block barrier
+//   per slab.  A tile is 128 pairs where its cand, h and FFN hidden fit in
+//   shared memory (qinco2-S: each of the two consumer warpgroups runs 64
+//   rows on whole 128-column passes), else 64 (qinco2-M and -L, where 128
+//   pairs would take 224 KB: both warpgroups run the 64 rows, each on one
+//   64-column half of every pass).  Where every SM has a work item the
+//   blocks run in clusters of 2 that share each slab by multicast, so a
+//   weight byte read from L2 feeds 2·TM pairs: 256 at qinco2-S, 128 at
+//   qinco2-L (2x the mma.sync kernel's 64 there).  Measured on an H100
+//   (PERF.md §6): a bulk copy holds its thread about 650 cycles
+//   whatever its size, so 8 KB slabs from one thread held the ring to
+//   12.5 B a cycle an SM and 16 KB slabs from four threads lift it past
+//   what the products take; clusters of 4 (256 pairs a byte at qinco2-L)
+//   ran 12% slower than 2 there, the kernel not being bound by L2.
 //   f32 (pallas=true's external vals; fast_encode=true pallas=true at f32
 //   in-kernel): selected_scores_f32_kernel, every MLP product in IEEE f32
 //   FFMA on the CUDA cores (f32_tile.cuh: TF32 would be a different
@@ -236,7 +252,7 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
                                   const void* ffn_up, const void* ffn_down, const void* out_proj,
                                   float* out, int NF, int F_in, int D, int K, int De, int Dh,
                                   int L, int A, int Wt, int tm, int rows, int blocks, int smem,
-                                  int bf16, int res, void* stream) {
+                                  int cluster, int bf16, int res, void* stream) {
   using namespace qt;
   if (NF == 0) return 0;
   const SelectedArgs a{x,      xh,       vals,     sub_t, cn2, table, wfold, w2, concat_b,
@@ -244,13 +260,17 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
                        Dh,     L,        A,        Wt,    res, rows};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (selected_stages(a) > tc::kMaxStages ||
-        (size_t)smem < SelectedLayout(a, tm, vals == nullptr).total || rows < 1 || rows > kRows ||
-        (tm != 64 && tm != 128))
+    // the plan's tile, rows a work item, cluster and shared memory (at
+    // least wg::kMinRing slots of the ring), or nothing
+    if (selected_stages(a) > tc::kMaxStages || (tm != 64 && tm != 128) || rows < 1 ||
+        rows > kRows || (cluster != 1 && cluster != 2 && cluster != 4) || blocks < cluster ||
+        blocks % cluster ||
+        SelectedLayout(a, tm, vals == nullptr).slots(smem, 0) < wg::kMinRing)
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
-        tm == 128 ? tc::launch_tc(selected_scores_tc_kernel<4, SelCut::kFull>, blocks, smem, s, a)
-                  : tc::launch_tc(selected_scores_tc_kernel<2, SelCut::kFull>, blocks, smem, s, a));
+        tm == 128
+            ? launch_selected(selected_scores_tc_kernel<2, SelCut::kFull>, blocks, smem, cluster, s, a)
+            : launch_selected(selected_scores_tc_kernel<1, SelCut::kFull>, blocks, smem, cluster, s, a));
   }
   // f32: the plan's tile, rows a work item and shared memory, or nothing
   if (selected_stages(a) > f32::kMaxStages ||

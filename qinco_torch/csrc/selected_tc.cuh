@@ -4,9 +4,11 @@
 // scripts/ktopa_breakdown.py's modes, which time its phases, and
 // scripts/kernel_variants.py's selcat.  See
 // selected_scores.cu for what the kernel computes and why it is built so.
+// Its MLP products run on wgmma with the weight ring of wgmma.cuh.
 #pragma once
 
 #include "step_tc.cuh"
+#include "wgmma.cuh"
 
 namespace qt {
 
@@ -83,7 +85,7 @@ __device__ __forceinline__ void top_a_tournament(float* S_s, int R, int K, int A
     for (int j = 1; j < G; ++j) m = fminf(m, col[j * (R + 1)]);
     val_s[i * A + b] = m;
   }
-  __syncthreads();
+  f32::sync();  // the consumer warps
   float bm[NR];  // lane b < A: bin b's minimum of the warp's row g
 #pragma unroll
   for (int g = 0; g < NR; ++g) {
@@ -125,34 +127,62 @@ __host__ __device__ inline int selected_stages(const SelectedArgs& g) {
   return 1 + (g.wfold ? 1 : 0) + 2 * g.L + (g.out_proj ? 1 : 0);
 }
 
+// The products of the weight stream, in order (s -> wg::Stage): the
+// condition product W2, [wfold], (U_l, D_l) x L, [out_proj]; every weight
+// in the slab layout (wg::blocked).
+struct SelectedStages {
+  const tc::bf16 *w2, *wfold, *up, *down, *proj;
+  int D, De, Dh, L;
+  __device__ wg::Stage operator()(int s) const {
+    if (s == 0) return {w2, D, De};
+    --s;
+    if (wfold) {
+      if (s == 0) return {wfold, D, De};
+      --s;
+    }
+    if (s < 2 * L) {
+      const int l = s >> 1;
+      if (s & 1) return {down + (size_t)l * wg::blocked(Dh, De), Dh, De};
+      return {up + (size_t)l * wg::blocked(De, Dh), De, Dh};
+    }
+    return {proj, De, D};
+  }
+};
+
 // Shared-memory layout of the tensor-core kernel (byte offsets), the same
-// arithmetic as selected_plan in qinco_torch/ops/kernels.py:
-//   stage table | r (R, D) f32 | ccb (R, De) f32 | vals (R, A) f32 |
-//   score partials (TM, 16) f32 | one region, overlaid by phase: rnd(xh)
-//   (R16, D) bf16;  then rnd(r) (R, D) f32 and the substep tile (K, R + 1)
+// arithmetic as _selected_mma_smem in qinco_torch/ops/kernels.py:
+//   the ring's barriers | r (R, D) f32 | ccb (R, De) f32 | vals (R, A) f32 |
+//   the two warpgroups' distance partials (2, 64) f32 | one region, overlaid by phase: rnd(xh) (64, D) bf16, the condition
+//   product's A;  then rnd(r) (R, D) f32 and the substep tile (K, R + 1)
 //   f32;  then per tile cand (TM, D), h (TM, De) and the FFN hidden
-//   (TM, Dh) bf16 | the weight ring.
+//   (TM, Dh) bf16 | the ring's slots (128-byte aligned), as many as the
+//   launch's shared memory holds, at most wg::kMaxRing.  The bf16 buffers
+//   are in the core-matrix layout (wg::act_off).
 struct SelectedLayout {
-  unsigned r, ccb, val, part, u, cand, h, big, ring, total;
+  unsigned r, ccb, val, part, u, cand, h, big, ring;
   __host__ __device__ SelectedLayout(const SelectedArgs& g, int TM, bool topa) {
     using tc::align16;
-    using tc::ld_of;
-    const size_t R = g.R, R16 = (g.R + 15) / 16 * 16;
-    r = tc::kStageBytes;
+    const size_t R = g.R;
+    r = wg::kBarBytes;
     ccb = r + align16(4 * R * g.D);
     val = ccb + align16(4 * R * g.De);
     part = val + align16(4 * R * g.A);
-    u = part + 4 * (size_t)TM * kScoreSlots;
-    const size_t phase0 = 2 * R16 * ld_of(g.D);
+    u = part + 2 * 64 * 4;
+    const size_t phase0 = 2 * 64 * (size_t)g.D;
     const size_t substep = topa ? align16(4 * R * g.D) + 4 * (size_t)g.K * (R + 1) : 0;
     cand = u;
-    h = cand + 2 * (size_t)TM * ld_of(g.D);
-    big = h + 2 * (size_t)TM * ld_of(g.De);
+    h = cand + 2 * (size_t)TM * g.D;
+    big = h + 2 * (size_t)TM * g.De;
+    const size_t tiles = big + 2 * (size_t)TM * g.Dh - u;
     size_t region = phase0 > substep ? phase0 : substep;
-    const size_t tiles = big + 2 * (size_t)TM * ld_of(g.Dh) - u;
     region = region > tiles ? region : tiles;
-    ring = u + align16(region);
-    total = ring + tc::kRingBytes;
+    ring = (u + align16(region) + 127) / 128 * 128;
+  }
+  // The ring's slots in `bytes` of shared memory, `extra` of them kept at
+  // the end.
+  __host__ __device__ int slots(size_t bytes, size_t extra) const {
+    const size_t n = bytes >= ring + extra ? (bytes - extra - ring) / wg::kSlabBytes : 0;
+    return n < (size_t)wg::kMaxRing ? (int)n : wg::kMaxRing;
   }
 };
 
@@ -171,105 +201,157 @@ struct SelectedLayout {
 //   kSelCat     scripts/kernel_variants.py's selcat_kernel: the external-vals
 //               route with the folded table (no wfold), the distance formed
 //               as ((x - (out + cand)) - xh)^2 from x and xh in f32, which
-//               it keeps (R, D) f32 past the layout's end.
+//               it keeps (R, D) f32 at the end of the shared memory.
 enum class SelCut : int {
   kFull, kNoExtract, kMlpOnly, kNoDist, kShell, kPerSlot, kTournament, kSelCat
 };
 
-// bf16 route: every MLP product on the tensor cores.  A block walks the
-// work items blockIdx.x, blockIdx.x + gridDim.x, ...: R beam rows each,
-// their R·A pairs in tiles of TM = 32·MT (pair p = i * A + a); under
-// kPerSlot slot-major, one slot's R rows a tile.  A cut other than kFull
-// and kSelCat takes the in-kernel top-A route only; kSelCat the external
-// vals only.
-template <int MT, SelCut CUT>
-__global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(SelectedArgs g) {
+// bf16 route: every MLP product on wgmma (wgmma.cuh).  A block has two
+// consumer warpgroups (the 8 warps of every phase) and a producer
+// warpgroup whose warps' first threads stream the weights.  A tile is TM
+// = 64·NW (row, slot) pairs: under NW = 2 each consumer warpgroup runs the
+// products for its own 64 rows on whole passes; under NW = 1 both run them
+// for the 64 rows, each on one 64-column half of every pass, and their
+// distance partials are added in a fixed order.  The blocks of a cluster
+// (1, 2 or 4 of them, the launch's) share every weight slab; cluster c
+// walks the work items c·C + rank, c·C + rank + C·clusters, ..., every
+// block of it as many rounds as its first (a block past the last item
+// streams the weights with no rows).  An item is R beam rows, their R·A
+// pairs in tiles of TM (pair p = i * A + a); under kPerSlot slot-major,
+// one slot's R rows a tile.  A cut other than kFull and kSelCat takes the
+// in-kernel top-A route only; kSelCat the external vals only.
+template <int NW, SelCut CUT>
+__global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(SelectedArgs g) {
   using namespace tc;
-  constexpr int TM = 32 * MT;
+  using wg::act_off;
+  using wg::frag_col;
+  using wg::frag_row;
+  constexpr int TM = 64 * NW;
+  // a product's columns a warpgroup takes of each pass, and their n8 blocks
+  constexpr int N = NW == 2 ? wg::kPass : wg::kPass / 2;
+  constexpr int kNJ = N / 8;
   constexpr bool kSlotMajor = CUT == SelCut::kPerSlot;
   constexpr bool kOneFetch =  // one codeword a row, stored to its A slots
       CUT == SelCut::kMlpOnly || CUT == SelCut::kNoDist || CUT == SelCut::kShell;
   constexpr bool kMlp = CUT != SelCut::kShell;  // the per-pair products
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt, R = g.R;
   const int tid = threadIdx.x;
   const bool topa = g.vals == nullptr, proj = g.out_proj != nullptr;
   const SelectedLayout lay(g, TM, topa);
+  const size_t extra = CUT == SelCut::kSelCat ? align16(4 * (size_t)R * D) : 0;
+  const uint32_t dyn = wg::dynamic_smem_bytes(), base = smem_addr(sm);
   float* r_s = reinterpret_cast<float*>(sm + lay.r);      // (R, D) residual target
   float* ccb_s = reinterpret_cast<float*>(sm + lay.ccb);  // (R, De) rnd(xh)·W2 + b
   float* val_s = reinterpret_cast<float*>(sm + lay.val);  // (R, A) packed top-A values
-  float* part_s = reinterpret_cast<float*>(sm + lay.part);  // (TM, 16) distance partials
-  bf16* xh_b = reinterpret_cast<bf16*>(sm + lay.u);       // (R16, D) rnd(xh)
+  unsigned char* xh_b = sm + lay.u;                       // (64, D) rnd(xh)
   float* rr_s = reinterpret_cast<float*>(sm + lay.u);     // (R, D) rnd(r)
   float* S_s = reinterpret_cast<float*>(sm + lay.u + align16(4 * (size_t)R * D));  // (K, R + 1)
-  bf16* cand_b = reinterpret_cast<bf16*>(sm + lay.cand);  // (TM, D) fetched codewords
-  bf16* h_b = reinterpret_cast<bf16*>(sm + lay.h);        // (TM, De)
-  bf16* hid_b = reinterpret_cast<bf16*>(sm + lay.big);    // (TM, Dh) FFN hidden
-  float* xh32_s = reinterpret_cast<float*>(sm + lay.total);  // (R, D) xh, kSelCat only
-  const int ldd = ld_of(D), ldh = ld_of(De), ldf = ld_of(Dh);
+  unsigned char* cand_b = sm + lay.cand;  // (TM, D) fetched codewords
+  unsigned char* h_b = sm + lay.h;        // (TM, De)
+  unsigned char* hid_b = sm + lay.big;    // (TM, Dh) FFN hidden
+  float* xh32_s = reinterpret_cast<float*>(sm + dyn - extra);  // (R, D) xh, kSelCat only
 
-  // The weight stream: the condition product once per item, then per tile
-  // [wfold], (U_l, D_l) x L, [out_proj] (none under kShell).
-  WStage* stages = reinterpret_cast<WStage*>(sm);
-  if (tid == 0) {
-    const bf16* up = static_cast<const bf16*>(g.ffn_up);
-    const bf16* down = static_cast<const bf16*>(g.ffn_down);
-    int n = 0;
-    stages[n++] = {static_cast<const bf16*>(g.w2), D, De};
-    if (g.wfold) stages[n++] = {static_cast<const bf16*>(g.wfold), D, De};
-    for (int l = 0; l < g.L; ++l) {
-      stages[n++] = {up + (size_t)l * De * Dh, De, Dh};
-      stages[n++] = {down + (size_t)l * Dh * De, Dh, De};
-    }
-    if (proj) stages[n++] = {static_cast<const bf16*>(g.out_proj), De, D};
-  }
-  __syncthreads();
   const int n_pairs = R * A, n_items = (g.NF + R - 1) / R;
   const int n_tiles = kSlotMajor ? A : (n_pairs + TM - 1) / TM;
-  WeightRing ring;
-  ring.init(reinterpret_cast<bf16*>(sm + lay.ring), stages, 1, kMlp ? selected_stages(g) : 1,
-            kMlp ? n_tiles : 1);
+  const SelectedStages stages{static_cast<const bf16*>(g.w2), static_cast<const bf16*>(g.wfold),
+                              static_cast<const bf16*>(g.ffn_up),
+                              static_cast<const bf16*>(g.ffn_down),
+                              static_cast<const bf16*>(g.out_proj), D, De, Dh, g.L};
+  wg::Ring<SelectedStages> ring;
+  ring.init(stages, base, base + lay.ring, lay.slots(dyn, extra), 1,
+            kMlp ? selected_stages(g) : 1, kMlp ? n_tiles : 1, kWarps);
+  const int C = ring.cluster, first = wg::cluster_id() * C, stride = wg::cluster_count() * C;
+  const int rounds = first < n_items ? (n_items - first + stride - 1) / stride : 0;
+  if (tid >= kThreads) {  // the producer warpgroup: lane 0 of each warp streams weights
+    f32::producer_regs();
+    if ((tid & 31) == 0) ring.produce_all(rounds, (tid - kThreads) >> 5);
+    return;
+  }
+  f32::consumer_regs();
+  const int wgi = tid >> 7, lane = tid & 31;  // the thread's consumer warpgroup
+  // NW = 2: warpgroup wgi runs the products for tile rows 64·wgi .. on whole
+  // passes; NW = 1: both run them for the tile's 64 rows, on column half
+  // `col` of each pass, and meet at the consumer barrier between products
+  const int T0 = NW == 2 ? 64 * wgi : 0, col = NW == 2 ? 0 : 64 * wgi;
+  const auto product_sync = [&] {
+    wg::fence_proxy_async();
+    if (NW == 2)
+      wg::wg_sync(wgi);
+    else
+      f32::sync();
+  };
   const bf16* table = static_cast<const bf16*>(g.table);
 
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int row0 = item * R, n_rows = min(R, g.NF - row0), n_valid = n_rows * A;
-    __syncthreads();  // the last item's readers of r, vals and the region are done
+  for (int round = 0; round < rounds; ++round) {
+    const int item = first + ring.rank + round * stride, row0 = item * R;
+    const int n_rows = item < n_items ? min(R, g.NF - row0) : 0, n_valid = n_rows * A;
+    f32::sync();  // the last item's readers of r, vals and the region are done
 
-    // ---- r = x - xh and rnd(xh)
-    load_residuals(g.x, g.xh, row0, n_rows, R, D, g.F_in, r_s, xh_b, ldd);
+    // ---- r = x - xh and rnd(xh), 4 columns a thread; rows past n_rows zero
+    for (int e = tid; e < R * D / 4; e += kThreads) {
+      const int i = e / (D / 4), c = 4 * (e - i * (D / 4));
+      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), hv = xv;
+      if (i < n_rows) {
+        hv = *reinterpret_cast<const float4*>(g.xh + (size_t)(row0 + i) * D + c);
+        xv = *reinterpret_cast<const float4*>(g.x + (size_t)((row0 + i) / g.F_in) * D + c);
+      }
+      st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c, D)), hv.x, hv.y);
+      st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c + 2, D)), hv.z, hv.w);
+      *reinterpret_cast<float4*>(r_s + i * D + c) =
+          make_float4(xv.x - hv.x, xv.y - hv.y, xv.z - hv.z, xv.w - hv.w);
+    }
     if constexpr (CUT == SelCut::kSelCat) {  // x in place of r, and xh, in f32
-      __syncthreads();
-      for (int e = tid; e < R * D; e += kTcThreads) {
+      f32::sync();
+      for (int e = tid; e < R * D; e += kThreads) {
         const int i = e / D, c = e - i * D;
         const bool on = i < n_rows;
         r_s[e] = on ? g.x[(size_t)((row0 + i) / g.F_in) * D + c] : 0.f;
         xh32_s[e] = on ? g.xh[(size_t)(row0 + i) * D + c] : 0.f;
       }
     }
-    // ---- the condition half of the concat layer: ccb = rnd(xh)·W2 + b
-    mma_stage<MT>(ring, xh_b, ldd, D, De, R, [&](int t, int c, float v0, float v1) {
-      ccb_s[t * De + c] = v0 + g.concat_b[c];
-      ccb_s[t * De + c + 1] = v1 + g.concat_b[c + 1];
-    });
-    __syncthreads();
+    wg::fence_proxy_async();
+    f32::sync();
+    // ---- the condition half of the concat layer: ccb = rnd(xh)·W2 + b, on
+    // warpgroup 0 (its 64 rows hold the R <= 32 rows); every epilogue
+    // below loads what it reads before it stores anything
+    wg::product<N>(ring, base + lay.u, D, D, De, col, NW == 1 || wgi == 0,
+                   [&](float(&d)[N / 2], int c0) {
+        float2 b[kNJ];
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          const int c = c0 + frag_col(j);
+          b[j] = c < De ? *reinterpret_cast<const float2*>(g.concat_b + c) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          const int c = c0 + frag_col(j);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (c < De && frag_row(h) < R)
+              *reinterpret_cast<float2*>(ccb_s + frag_row(h) * De + c) =
+                  make_float2(d[4 * j + 2 * h] + b[j].x, d[4 * j + 2 * h + 1] + b[j].y);
+        }
+      });
+    f32::sync();
 
     if (!topa) {
       // ---- external top-A: the packed values carry the ids
-      for (int e = tid; e < R * A; e += kTcThreads)
+      for (int e = tid; e < R * A; e += kThreads)
         val_s[e] = e / A < n_rows ? g.vals[(size_t)row0 * A + e] : 0.f;
     } else {
       // ---- packed substep partial distances (K, R) and the exact top-A,
       // as in the f32 kernel (f32 on the CUDA cores, same order of sums)
-      for (int e = tid; e < R * D; e += kTcThreads) rr_s[e] = rnd<true>(r_s[e]);
-      __syncthreads();
+      for (int e = tid; e < R * D; e += kThreads) rr_s[e] = rnd<true>(r_s[e]);
+      f32::sync();
       substep_rows(rr_s, R, D, g.sub_t, g.cn2, K, S_s);
-      __syncthreads();
+      f32::sync();
       if constexpr (CUT == SelCut::kFull || CUT == SelCut::kPerSlot) {
         top_a_rows(S_s, R, K, A, val_s);
       } else if constexpr (CUT == SelCut::kTournament) {
         top_a_tournament(S_s, R, K, A, val_s);
       } else {  // no extraction: slot a takes codeword a's packed value
-        for (int e = tid; e < R * A; e += kTcThreads)
+        for (int e = tid; e < R * A; e += kThreads)
           val_s[e] = S_s[(e % A) * (R + 1) + e / A];
       }
     }
@@ -281,135 +363,284 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) selected_scores_tc_kernel(S
     const auto row = [&](int t, int p0) { return kSlotMajor ? t : (p0 + t) / A; };
     for (int tile = 0, p0 = 0; tile < n_tiles; ++tile, p0 += kSlotMajor ? 1 : TM) {
       const int rows = kSlotMajor ? n_rows : max(0, min(TM, n_valid - p0));
-      __syncthreads();  // vals are in; the region's last readers are done
+      f32::sync();  // vals are in; the region's last readers are done
       if constexpr (kOneFetch) {
         // one 16-byte load per beam row the tile touches and 8 columns, its
         // slot 0's codeword, stored to each of its slots in the tile
         const int i0 = p0 / A, nb = (p0 + TM - 1) / A - i0 + 1;
-        for (int e = tid; e < nb * (D / 8); e += kTcThreads) {
+        for (int e = tid; e < nb * (D / 8); e += kThreads) {
           const int b = e / (D / 8), j = e - b * (D / 8), i = i0 + b;
           uint4 v = make_uint4(0, 0, 0, 0);
           if (i < n_rows)
             v = *reinterpret_cast<const uint4*>(table + (size_t)unpack_id(val_s[i * A]) * Wt +
                                                 8 * j);
           for (int t = max(0, i * A - p0); t < min(TM, (i + 1) * A - p0); ++t)
-            *reinterpret_cast<uint4*>(cand_b + t * ldd + 8 * j) =
+            *reinterpret_cast<uint4*>(cand_b + act_off(t, 8 * j, D)) =
                 t < rows ? v : make_uint4(0, 0, 0, 0);
         }
       } else {
-        // fetch the codewords, 8 bf16 a thread, 4 loads in flight
-        for (int e0 = tid; e0 < TM * (D / 8); e0 += 4 * kTcThreads) {
+        // fetch the codewords, 8 bf16 a thread, 4 loads in flight; a
+        // warp's threads take 32 rows of one 8-column chunk, so each 8 of
+        // them store to the 8 rows of one core matrix (no bank twice)
+        for (int e0 = tid; e0 < TM * (D / 8); e0 += 4 * kThreads) {
           uint4 v[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const int e = e0 + u * kTcThreads, t = e / (D / 8), j = e - t * (D / 8);
+            const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
             v[u] = make_uint4(0, 0, 0, 0);
-            if (t < rows)
+            if (t < rows && j < D / 8)
               v[u] = *reinterpret_cast<const uint4*>(
                   table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + 8 * j);
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const int e = e0 + u * kTcThreads, t = e / (D / 8), j = e - t * (D / 8);
-            if (t < TM) *reinterpret_cast<uint4*>(cand_b + t * ldd + 8 * j) = v[u];
+            const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+            if (j < D / 8) *reinterpret_cast<uint4*>(cand_b + act_off(t, 8 * j, D)) = v[u];
           }
         }
       }
-      for (int e = tid; e < TM * kScoreSlots; e += kTcThreads) part_s[e] = 0.f;
-      if constexpr (kMlp) {
-        if (g.wfold) {
-          mma_stage_bf16<MT>(
-              ring, cand_b, ldd, D, De, rows, h_b, ldh, nullptr, 0,
-              [&](int t, int c, float v0, float v1) {
-                const float* cb = ccb_s + min(row(t, p0), R - 1) * De + c;
-                return make_float2(v0 + cb[0], v1 + cb[1]);
-              },
-              NoLast{});
-        } else {
-          for (int e = tid; e < rows * (De / 2); e += kTcThreads) {
-            const int t = e / (De / 2), c = 2 * (e - t * (De / 2)), p = pair(t, p0);
-            const float2 hc = ld_bf2(table + (size_t)unpack_id(val_s[p]) * Wt + D + c);
-            const float* cb = ccb_s + row(t, p0) * De + c;
-            st_bf2(h_b + t * ldh + c, hc.x + cb[0], hc.y + cb[1]);
-          }
+      if (kMlp && !g.wfold) {  // the folded table's h slice: h = rnd(table[id][D:] + ccb)
+        // a warp's threads take 8 rows x 8 columns, one core matrix
+        for (int e = tid; e < (rows + 7) / 8 * 8 * (De / 2); e += kThreads) {
+          const int rest = e >> 5, kc = rest % (De / 8);
+          const int t = (rest / (De / 8)) * 8 + ((e >> 2) & 7), c = 8 * kc + 2 * (e & 3);
+          if (t >= rows) continue;
+          const int p = pair(t, p0);
+          const float2 hc = ld_bf2(table + (size_t)unpack_id(val_s[p]) * Wt + D + c);
+          const float* cb = ccb_s + row(t, p0) * De + c;
+          st_bf2(reinterpret_cast<bf16*>(h_b + act_off(t, c, De)), hc.x + cb[0], hc.y + cb[1]);
         }
       }
-      // d = ||r - out - cand||^2: each (t, c, c + 1) of out adds its two
-      // squares to its slot; out is the last product's output.  kNoDist
-      // adds out + cand instead, no residual and no square.
-      auto score = [&](int t, int c, float o0, float o1) {
-        if constexpr (CUT == SelCut::kSelCat) {  // (x - (out + cand)) - xh, in that order
-          const float* xr = r_s + row(t, p0) * D + c;
-          const float* hr = xh32_s + row(t, p0) * D + c;
-          if (g.res) {
-            const float2 cv = ld_bf2(cand_b + t * ldd + c);
-            o0 += cv.x;
-            o1 += cv.y;
-          }
-          add_score(part_s, t, (xr[0] - o0) - hr[0], (xr[1] - o1) - hr[1]);
-        } else if constexpr (CUT == SelCut::kNoDist) {
-          if (g.res) {
-            const float2 cv = ld_bf2(cand_b + t * ldd + c);
-            o0 += cv.x;
-            o1 += cv.y;
-          }
-          part_s[t * kScoreSlots + 4 * ((threadIdx.x >> 5) & 3) + (threadIdx.x & 3)] += o0 + o1;
-        } else {
-          const float* r = r_s + row(t, p0) * D + c;
-          float d0 = r[0] - o0, d1 = r[1] - o1;
-          if (g.res) {
-            const float2 cv = ld_bf2(cand_b + t * ldd + c);
-            d0 -= cv.x;
-            d1 -= cv.y;
-          }
-          add_score(part_s, t, d0, d1);
-        }
+      wg::fence_proxy_async();
+      f32::sync();  // cand and h are in
+
+      const auto cand2 = [&](int t, int c) {
+        return ld_bf2(reinterpret_cast<const bf16*>(cand_b + act_off(t, c, D)));
+      };
+      const auto write = [&](int t, float d) {  // row t's distance, packed with its id
+        const int p = pair(t, p0);
+        g.out[(size_t)row0 * A + p] =
+            pack_id(CUT == SelCut::kNoDist ? fabsf(d) + 1.f : d, unpack_id(val_s[p]));
       };
       if constexpr (!kMlp) {
-        // ||r - cand||^2, slot s of row t summing columns 2s, 2s + 1 + 32j
-        __syncthreads();  // cand and the zeroed partials are in
-        for (int e = tid; e < rows * kScoreSlots; e += kTcThreads) {
-          const int t = e / kScoreSlots, s = e - t * kScoreSlots;
+        // ||r - cand||^2, a thread a pair, columns in order
+        for (int t = tid; t < rows; t += kThreads) {
           const float* r = r_s + row(t, p0) * D;
           float q = 0.f;
-          for (int c = 2 * s; c < D; c += 2 * kScoreSlots) {
-            const float2 cv = ld_bf2(cand_b + t * ldd + c);
+          for (int c = 0; c < D; c += 2) {
+            const float2 cv = cand2(t, c);
             const float d0 = r[c] - cv.x, d1 = r[c + 1] - cv.y;
             q = fmaf(d1, d1, fmaf(d0, d0, q));
           }
-          part_s[e] = q;
+          write(t, q);
         }
-      } else if (proj) {
-        ffn_stages<MT>(ring, h_b, ldh, hid_b, ldf, g.L, De, Dh, rows, NoLast{});
-        mma_stage<MT>(ring, h_b, ldh, De, D, rows, score);
-      } else {
-        ffn_stages<MT>(ring, h_b, ldh, hid_b, ldf, g.L, De, Dh, rows, score);
+        continue;
       }
-      __syncthreads();
-      if (kMlp && !proj && g.L == 0)  // out = h, no product left to carry the sums
-        for (int e = tid; e < rows; e += kTcThreads)
+      // ---- the warpgroup's 64 pairs from T0 through the MLP
+      const bool on = rows > T0;
+      const uint32_t a_cand = base + lay.cand + 2 * T0 * D, a_h = base + lay.h + 2 * T0 * De,
+                     a_hid = base + lay.big + 2 * T0 * Dh;
+      bf16* h16 = reinterpret_cast<bf16*>(h_b);
+      bf16* hid16 = reinterpret_cast<bf16*>(hid_b);
+      // d = ||r - out - cand||^2, summed over the thread's columns for its
+      // two rows (h = 0, 1) in the last product's epilogue, in column
+      // order; out(j, h) is that product's output.  kNoDist sums out + cand
+      // instead, no residual and no square.
+      float dsum[2] = {0.f, 0.f};
+      const auto score = [&](int c0, auto out) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int T = T0 + frag_row(h);
+          const float* r = r_s + row(min(T, rows - 1), p0) * D;
+          const float* hr = xh32_s + row(min(T, rows - 1), p0) * D;
+          float q = dsum[h];
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) {
+            const int c = c0 + frag_col(j);
+            if (c < D) {
+              float2 o = out(j, h);
+              const float2 cv = g.res ? cand2(min(T, TM - 1), c) : make_float2(0.f, 0.f);
+              if constexpr (CUT == SelCut::kSelCat) {  // (x - (out + cand)) - xh, in that order
+                o.x += cv.x;
+                o.y += cv.y;
+                const float d0 = (r[c] - o.x) - hr[c], d1 = (r[c + 1] - o.y) - hr[c + 1];
+                q = fmaf(d1, d1, fmaf(d0, d0, q));
+              } else if constexpr (CUT == SelCut::kNoDist) {
+                q += (o.x + cv.x) + (o.y + cv.y);
+              } else {
+                const float d0 = r[c] - o.x - cv.x, d1 = r[c + 1] - o.y - cv.y;
+                q = fmaf(d1, d1, fmaf(d0, d0, q));
+              }
+            }
+          }
+          dsum[h] = q;
+        }
+      };
+      if (g.wfold) {  // the lean fetch: h = rnd(cand·wfold + ccb)
+        int crow[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) crow[h] = min(row(T0 + frag_row(h), p0), R - 1);
+        wg::product<N>(ring, a_cand, D, D, De, col, on, [&](float(&d)[N / 2], int c0) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2 cb[kNJ / 2][2];
+#pragma unroll
+            for (int jj = 0; jj < kNJ / 2; ++jj)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + frag_col(half * kNJ / 2 + jj);
+                cb[jj][h] = c < De ? *reinterpret_cast<const float2*>(ccb_s + crow[h] * De + c)
+                                   : make_float2(0.f, 0.f);
+              }
+#pragma unroll
+            for (int jj = 0; jj < kNJ / 2; ++jj) {
+              const int j = half * kNJ / 2 + jj, c = c0 + frag_col(j);
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                if (c < De)
+                  st_bf2(h16 + act_off(T0 + frag_row(h), c, De) / 2, d[4 * j + 2 * h] + cb[jj][h].x,
+                         d[4 * j + 2 * h + 1] + cb[jj][h].y);
+            }
+          }
+        });
+        product_sync();
+      }
+      // FFN blocks: up = rnd(relu(h·U_l)); h = rnd(h + rnd(up·D_l)); the last
+      // block's h carries the score when no out_proj follows
+      for (int l = 0; l < g.L; ++l) {
+        wg::product<N>(ring, a_h, De, De, Dh, col, on, [&](float(&d)[N / 2], int c0) {
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) {
+            const int c = c0 + frag_col(j);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (c < Dh)
+                st_bf2(hid16 + act_off(T0 + frag_row(h), c, Dh) / 2, fmaxf(d[4 * j + 2 * h], 0.f),
+                       fmaxf(d[4 * j + 2 * h + 1], 0.f));
+          }
+        });
+        product_sync();
+        const bool last = l == g.L - 1 && !proj;
+        wg::product<N>(ring, a_hid, Dh, Dh, De, col, on, [&](float(&d)[N / 2], int c0) {
+          uint32_t v[kNJ][2];
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = c0 + frag_col(j);
+              v[j][h] = c < De ? *reinterpret_cast<const uint32_t*>(
+                                     h16 + act_off(T0 + frag_row(h), c, De) / 2)
+                               : 0u;
+            }
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 o = unpack_bf2(v[j][h]);
+              v[j][h] = pack_bf2(rnd<true>(d[4 * j + 2 * h]) + o.x,
+                                 rnd<true>(d[4 * j + 2 * h + 1]) + o.y);
+            }
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = c0 + frag_col(j);
+              if (c < De)
+                *reinterpret_cast<uint32_t*>(h16 + act_off(T0 + frag_row(h), c, De) / 2) = v[j][h];
+            }
+          if (last) score(c0, [&](int j, int h) { return unpack_bf2(v[j][h]); });
+        });
+        product_sync();
+      }
+      if (proj)
+        wg::product<N>(ring, a_h, De, De, D, col, on, [&](float(&d)[N / 2], int c0) {
+          score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); });
+        });
+      if (!proj && g.L == 0) {  // out = h, no product left to carry the sums: a thread a pair
+        for (int t = T0 + (tid & 127); t < min(rows, T0 + 64) && (NW == 2 || wgi == 0); t += 128) {
+          const float* r = r_s + row(t, p0) * D;
+          float q = 0.f;
           for (int c = 0; c < D; c += 2) {
-            const float2 o = ld_bf2(h_b + e * ldh + c);
-            float* q = part_s + e * kScoreSlots;
-            const float* r = r_s + row(e, p0) * D + c;
-            float d0 = r[0] - o.x, d1 = r[1] - o.y;
+            const float2 o = ld_bf2(h16 + act_off(t, c, De) / 2);
+            float d0 = r[c] - o.x, d1 = r[c + 1] - o.y;
             if (g.res) {
-              const float2 cv = ld_bf2(cand_b + e * ldd + c);
+              const float2 cv = cand2(t, c);
               d0 -= cv.x;
               d1 -= cv.y;
             }
-            *q = fmaf(d1, d1, fmaf(d0, d0, *q));
+            q = fmaf(d1, d1, fmaf(d0, d0, q));
           }
-      // ---- the slots' sums, packed with the slot's id
-      for (int t = tid; t < rows; t += kTcThreads) {
-        const int p = pair(t, p0);
-        const float d = sum_score(part_s, t);
-        g.out[(size_t)row0 * A + p] =
-            pack_id(CUT == SelCut::kNoDist ? fabsf(d) + 1.f : d, unpack_id(val_s[p]));
+          write(t, q);
+        }
+        continue;
+      }
+      // ---- the rows' sums: the 4 lanes of a row (lane & 3), in a fixed
+      // order; under NW = 1 the two warpgroups' column halves, added in order
+      float* part_s = reinterpret_cast<float*>(sm + lay.part);  // (2, 64)
+#pragma unroll
+      for (int hs = 0; hs < 2; ++hs) {
+        float s = dsum[hs];
+        s += __shfl_xor_sync(kFull, s, 1);
+        s += __shfl_xor_sync(kFull, s, 2);
+        const int T = T0 + frag_row(hs);
+        if (NW == 1 && (lane & 3) == 0) part_s[64 * wgi + T] = s;
+        if (NW == 2 && (lane & 3) == 0 && T < rows) write(T, s);
+      }
+      if (NW == 1) {
+        f32::sync();
+        if (wgi == 0 && (lane & 3) == 0)
+#pragma unroll
+          for (int hs = 0; hs < 2; ++hs) {
+            const int T = frag_row(hs);
+            if (T < rows) write(T, part_s[T] + part_s[64 + T]);
+          }
       }
     }
   }
-  ring.drain();
+}
+
+// Launches a selected-scores kernel in clusters of `cluster` blocks with
+// wg::kBlock threads each on `stream`, on at most as many clusters as the
+// card holds at once (cudaOccupancyMaxActiveClusters, asked once per
+// kernel, shared memory and cluster size).
+template <typename Kernel>
+cudaError_t launch_selected(Kernel kernel, int blocks, int smem, int cluster, cudaStream_t stream,
+                            const SelectedArgs& args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(wg::kBlock, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  struct Fit {
+    const void* kernel;
+    int smem, cluster, clusters;
+  };
+  static Fit fits[32];
+  static int n_fits = 0;
+  int clusters = 0;
+  for (int i = 0; i < n_fits; ++i)
+    if (fits[i].kernel == (const void*)kernel && fits[i].smem == smem &&
+        fits[i].cluster == cluster)
+      clusters = fits[i].clusters;
+  if (clusters == 0) {
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (n_fits < 32) fits[n_fits++] = {(const void*)kernel, smem, cluster, clusters};
+  }
+  cfg.gridDim.x = blocks < clusters * cluster ? blocks : clusters * cluster;
+  e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace qt

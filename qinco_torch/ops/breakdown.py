@@ -209,9 +209,10 @@ def _variant_plain(spec, x, xh, w, A: int, F_in: int, mode: str):
 
 
 def _with_rows(plan: kernels.LaunchPlan, rows: Optional[int], n: int, smem_of,
-               device) -> kernels.LaunchPlan:
+               device, clustered: bool = False) -> kernels.LaunchPlan:
     """``plan`` with ``rows`` beam rows a work item, or ``plan`` itself for
-    None; raises where the kernels do not take ``rows``."""
+    None (``clustered``: B2's kernel, on the grid of ``kernels.wg_grid``);
+    raises where the kernels do not take ``rows``."""
     if rows is None:
         return plan
     if not 1 <= rows <= kernels._ROWS or rows & (rows - 1):
@@ -221,8 +222,11 @@ def _with_rows(plan: kernels.LaunchPlan, rows: Optional[int], n: int, smem_of,
         raise ValueError(f"{rows} rows a work item need {smem} B of shared memory "
                          f"> {kernels._SMEM_LIMIT}")
     items = -(-n // rows)
-    return plan._replace(per_item=rows, smem=smem, items=items,
-                         blocks=min(items, kernels._sm_count(device)))
+    sms = kernels._sm_count(device)
+    if not clustered:
+        return plan._replace(per_item=rows, smem=smem, items=items, blocks=min(items, sms))
+    cluster, blocks = kernels.wg_grid(items, sms)
+    return plan._replace(per_item=rows, smem=smem, items=items, blocks=blocks, cluster=cluster)
 
 
 def ktopa_plan(spec: QincoSpec, xh: torch.Tensor, p, n_codes: int,
@@ -241,7 +245,7 @@ def _ktopa_plan(xh, w, L: int, n_codes: int, rows: Optional[int]) -> kernels.Lau
                                  sms=kernels._sm_count(xh.device))
     return _with_rows(plan, rows, NF,
                       lambda R, tm: kernels._selected_mma_smem(R, tm, n_codes, D, K, De, Dh, True),
-                      xh.device)
+                      xh.device, clustered=True)
 
 
 def ktopa_variant(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int,
@@ -260,12 +264,14 @@ def ktopa_variant(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes
     K, Wt = w.table.shape
     De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
+    b = kernels.wg_blocked
     kernels._launch(
         "ktopa_variants", xh,
-        [x.contiguous(), xh.contiguous(), None, w.sub_t, w.cn2, w.table, w.wfold, w.w2,
-         w.concat_b, w.ffn_up, w.ffn_down, w.out_proj, out],
+        [x.contiguous(), xh.contiguous(), None, w.sub_t, w.cn2, w.table, b(w.wfold), b(w.w2),
+         w.concat_b, b(w.ffn_up), b(w.ffn_down), b(w.out_proj), out],
         [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
-         plan.smem, kernels._res(spec), _SEL_CUT[kernel]], count=f"ktopa_variant:{kernel}")
+         plan.smem, plan.cluster, kernels._res(spec), _SEL_CUT[kernel]],
+        count=f"ktopa_variant:{kernel}")
     return out
 
 
@@ -529,13 +535,12 @@ def _selcat_plan(xh, w, L: int, A: int, rows: Optional[int]) -> kernels.LaunchPl
     De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
 
     def smem(R, tm):
-        return kernels._selected_mma_smem(R, tm, A, D, K, De, Dh, False) + kernels._a16(4 * R * D)
+        return kernels._selected_mma_smem(R, tm, A, D, K, De, Dh, False, kernels._a16(4 * R * D))
 
     stages = 1 + 2 * L + (w.out_proj is not None)  # W2, the FFN, [out_proj]
-    plan = kernels._item_plan("selcat", NF, lambda tm: kernels._ROWS, smem,
-                              kernels._sm_count(xh.device), bf16=True, stages=stages,
-                              widths=dict(D=D, De=De, Dh=Dh), dims=f"K={K}, A={A}")
-    return _with_rows(plan, rows, NF, smem, xh.device)
+    plan = kernels._selected_wg_plan(NF, A, D, K, De, Dh, False, stages,
+                                     kernels._sm_count(xh.device), row_bytes=4 * D, name="selcat")
+    return _with_rows(plan, rows, NF, smem, xh.device, clustered=True)
 
 
 def selcat(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, vals: torch.Tensor,
@@ -553,12 +558,13 @@ def selcat(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, vals: torch.Te
     K, Wt = w.table.shape
     De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
+    b = kernels.wg_blocked
     kernels._launch(
         "ktopa_variants", xh,
-        [x.contiguous(), xh.contiguous(), vals.contiguous(), w.sub_t, w.cn2, w.table, None, w.w2,
-         w.concat_b, w.ffn_up, w.ffn_down, w.out_proj, out],
+        [x.contiguous(), xh.contiguous(), vals.contiguous(), w.sub_t, w.cn2, w.table, None,
+         b(w.w2), w.concat_b, b(w.ffn_up), b(w.ffn_down), b(w.out_proj), out],
         [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
-         plan.smem, kernels._res(spec), _SEL_CUT["selcat"]], count="selcat")
+         plan.smem, plan.cluster, kernels._res(spec), _SEL_CUT["selcat"]], count="selcat")
     return out
 
 

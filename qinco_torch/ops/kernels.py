@@ -63,12 +63,12 @@ from ..models.spec import QincoSpec
 # name -> (source, pointer arguments, int arguments) of the C entry point
 # ``qt_<name>(pointers..., ints..., stream)``.
 _KERNELS = {
-    "selected_scores": ("selected_scores.cu", 13, 15),
+    "selected_scores": ("selected_scores.cu", 13, 16),
     "select_rebuild": ("select_rebuild.cu", 13, 17),
     "fused_substep_scores": ("fused_substep_scores.cu", 12, 19),
     "candidate_scores": ("candidate_scores.cu", 12, 15),
     # the phase-breakdown kernels of B2 and B4 (ops/breakdown.py)
-    "ktopa_variants": ("ktopa_variants.cu", 13, 15),
+    "ktopa_variants": ("ktopa_variants.cu", 13, 16),
     "fused_cuts": ("fused_cuts.cu", 12, 19),
     "stream_probes": ("stream_probes.cu", 2, 6),
 }
@@ -118,6 +118,19 @@ _MMA_WIDTH = 16  # every width is a multiple of the mma tile's 16
 _MMA_STAGES = 64  # tc::kMaxStages: products in one weight stream
 _STAGE_BYTES = _MMA_STAGES * 16  # tc::kStageBytes: the stage table
 _RING_BYTES = 3 * 32 * (128 + 8) * 2  # tc::kRingBytes: 3 slabs of 32 x 128 bf16, padded
+# B2's bf16 kernel on wgmma (csrc/wgmma.cuh, selected_tc.cuh): tiles of 128
+# or 64 pairs, weight slabs of 64 rows in column passes of 128, a ring of 4
+# to 16 slabs, and clusters of _WG_CLUSTER blocks that share each slab.
+_WG_TILES = (128, 64)  # pairs a tile: two consumer warpgroups, or one
+_WG_SLAB_K = 64  # wg::kSlabK
+_WG_PASS = 128  # wg::kPass
+_WG_SLAB_BYTES = _WG_SLAB_K * _WG_PASS * 2  # wg::kSlabBytes: a ring slot
+_WG_RING = (4, 16)  # wg::kMinRing, wg::kMaxRing
+_WG_BAR_BYTES = 2 * 16 * 8  # wg::kBarBytes
+# Blocks of a cluster where every SM has a work item: a weight byte read
+# from L2 then feeds 2·tile pairs.  Clusters of 4 ran slower on an H100
+# (PERF.md §6): the kernel is not bound by L2 at these tiles.
+_WG_CLUSTER = 2
 # The f32 kernels (csrc/f32_tile.cuh): one block per SM too.
 _F32_TILES = (64, 32)  # MLP row tiles, largest first
 _F32_PASS = 128  # f32::kPass: output columns of a pass, the blocked layout's width
@@ -241,13 +254,16 @@ class _SelectedWeights(NamedTuple):
     out_proj: Optional[torch.Tensor]  # (De, D) dt
 
 
-def _selected_weights(spec: QincoSpec, p) -> _SelectedWeights:
+def _selected_weights(spec: QincoSpec, p, stream=None) -> _SelectedWeights:
     """The operands of ``selected_scores_pallas``.  Under ``spec.fast``
     the lean fetch: the dt codebook, multiplied into the folded weight
     wfold = P·(I+W1) (computed in high precision, as JAX's HIGHEST).
     Otherwise the folded table rnd([C | cp + rnd(cp)·rnd(W1)]) with
-    cp = rnd(C)·rnd(P), or C without in_proj."""
+    cp = rnd(C)·rnd(P), or C without in_proj.  ``stream`` (default: cast
+    to dt) takes each streamed weight (wfold, w2, ffn_up, ffn_down,
+    out_proj) to the form a kernel reads."""
     dt = _compute_dtype(spec)
+    stream = stream or (lambda t: t.to(dt).contiguous())
     rnd = rounder(spec)
     h_w = p.in_proj.shape[1] if p.in_proj is not None else spec.D
     w1, w2 = p.concat_w[:h_w], p.concat_w[h_w:]
@@ -257,7 +273,7 @@ def _selected_weights(spec: QincoSpec, p) -> _SelectedWeights:
         wfold = torch.eye(h_w, dtype=torch.float32, device=w1.device) + w1
         if p.in_proj is not None:
             wfold = _exact(p.in_proj, wfold)
-        wfold = wfold.to(dt).contiguous()
+        wfold = stream(wfold)
         table = C.to(dt)
     else:
         cp = _exact(rnd(C), rnd(p.in_proj)) if p.in_proj is not None else C
@@ -265,11 +281,11 @@ def _selected_weights(spec: QincoSpec, p) -> _SelectedWeights:
     sub_t, cn2 = _substep_operands(spec, p)
     return _SelectedWeights(
         sub_t=sub_t, cn2=cn2, table=table.contiguous(), wfold=wfold,
-        w2=w2.to(dt).contiguous(),
+        w2=stream(w2),
         concat_b=p.concat_b.float().contiguous(),
-        ffn_up=p.ffn_up.to(dt).contiguous(),
-        ffn_down=p.ffn_down.to(dt).contiguous(),
-        out_proj=None if p.out_proj is None else p.out_proj.to(dt).contiguous(),
+        ffn_up=stream(p.ffn_up),
+        ffn_down=stream(p.ffn_down),
+        out_proj=None if p.out_proj is None else stream(p.out_proj),
     )
 
 
@@ -340,27 +356,54 @@ def selected_scores(
     if xh.device.type == "cpu":
         return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in,
                                       vals)
-    with tracing.span("kernels.selected_scores"):
+    with tracing.span("kernels.selected_scores") as sp:
         _require_cuda(xh)
-        w = _selected_weights(spec, p)
-        NF, D = xh.shape
-        K, Wt = w.table.shape
-        De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
-        A = n_codes
-        stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
-        plan = selected_plan(NF, A, D, K, De, Dh, bf16=bool(_is_bf16(spec)), topa=vals is None,
-                             stages=stages, sms=_sm_count(xh.device))
-        if not _is_bf16(spec):
-            w = w._replace(**{f: blocked(getattr(w, f))
-                              for f in ("wfold", "w2", "ffn_up", "ffn_down", "out_proj")})
-        out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
-        _launch("selected_scores", xh,
-                [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
-                 w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
-                 w.out_proj, out],
-                [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
-                 plan.smem, _is_bf16(spec), _res(spec)])
-        return out
+        w = _selected_weights(spec, p, _selected_stream(spec))
+        plan = _selected_launch_plan(spec, xh, w, n_codes, vals is None)
+        sp.set(tile_pairs=plan.tm, cluster=plan.cluster)
+        return _selected_launch(spec, x, xh, w, n_codes, F_in, vals, plan)
+
+
+def _selected_launch_plan(spec: QincoSpec, xh, w: _SelectedWeights, n_codes: int,
+                          topa: bool) -> LaunchPlan:
+    NF, D = xh.shape
+    K = w.table.shape[0]
+    De = w.concat_b.shape[0]
+    stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
+    return selected_plan(NF, n_codes, D, K, De, spec.dh, bf16=bool(_is_bf16(spec)), topa=topa,
+                         stages=stages, sms=_sm_count(xh.device))
+
+
+def _selected_stream(spec: QincoSpec):
+    """The streamed weights' form in the kernel: the slab layout in bf16
+    (:func:`wg_blocked`, the cast in the same copy), the f32 blocked layout
+    otherwise."""
+    if _is_bf16(spec):
+        return lambda t: wg_blocked(t, torch.bfloat16)
+    return lambda t: blocked(t.float())
+
+
+def _selected_launch(spec: QincoSpec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int,
+                     vals, plan: LaunchPlan) -> torch.Tensor:
+    """Launch the selected-scores kernel on the device operands ``w`` (the
+    streamed weights in the kernel's form, :func:`_selected_stream`) with
+    ``plan``; returns the (NF, n_codes) output.  Counts the weight bytes a
+    bf16 launch streams (``kernels.weight_stream_bytes``)."""
+    NF, D = xh.shape
+    K, Wt = w.table.shape
+    De, Dh = w.concat_b.shape[0], spec.dh
+    if _is_bf16(spec):
+        tracing.count("kernels.weight_stream_bytes", selected_stream_bytes(
+            plan, n_codes, D, De, Dh, spec.L, wfold=w.wfold is not None,
+            proj=w.out_proj is not None))
+    out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
+    _launch("selected_scores", xh,
+            [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
+             w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
+             w.out_proj, out],
+            [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
+             plan.smem, plan.cluster, _is_bf16(spec), _res(spec)])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -811,6 +854,7 @@ class LaunchPlan(NamedTuple):
     items: int  # work items
     blocks: int  # blocks launched
     mma: bool  # tensor-core kernel (bf16) or CUDA-core kernel (f32)
+    cluster: int = 1  # blocks of a thread-block cluster that share the weight stream (B2)
 
 
 def _ld(width: int) -> int:
@@ -921,13 +965,88 @@ def _rebuild_f32_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
             + lr + _f32_ring(tm))
 
 
-def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa) -> int:
-    head = (_STAGE_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A)
-            + 4 * tm * 16)  # r, ccb, top-A values, the distance partials
-    phase0 = 2 * _a16(R) * _ld(D)  # rnd(xh), R rows rounded up to 16
+def _pass_count(nout: int) -> int:
+    """Column passes of a product of nout columns (wg::pass_count)."""
+    return -(-nout // _WG_PASS)
+
+
+def _k_pad(kin: int) -> int:
+    """A weight's rows padded to whole slabs (wg::k_pad)."""
+    return -(-kin // _WG_SLAB_K) * _WG_SLAB_K
+
+
+def _wg_elems(kin: int, nout: int) -> int:
+    """bf16 elements of a (kin, nout) weight in the slab layout (wg::blocked)."""
+    return _k_pad(kin) * _pass_count(nout) * _WG_PASS
+
+
+def wg_blocked(w: Optional[torch.Tensor], dtype: Optional[torch.dtype] = None
+               ) -> Optional[torch.Tensor]:
+    """A weight ``(..., kin, nout)`` in the slab layout of B2's wgmma kernel
+    (``csrc/wgmma.cuh``), flat per leading index and cast to ``dtype``
+    (default: its own) in the same copy: pass by pass
+    (``_pass_count(nout)`` passes of 128 columns), slab by slab (64 rows),
+    each slab contiguous and laid out as W^T in 8 x 8 core matrices,
+    element (k, n) of the slab at ``((n // 8) * 8 + k // 8) * 64 + (n % 8)
+    * 8 + k % 8``; rows past kin and columns past nout zero."""
+    if w is None:
+        return None
+    *lead, kin, nout = w.shape
+    P, Np, Kp = _pass_count(nout), _WG_PASS, _k_pad(kin)
+    if (Kp, P * Np) != (kin, nout):
+        w = F.pad(w, (0, P * Np - nout, 0, Kp - kin))
+    n = len(lead)
+    v = w.reshape(*lead, Kp // _WG_SLAB_K, _WG_SLAB_K // 8, 8, P, Np // 8, 8)  # (s, kc, kr, p, g, nr)
+    v = v.permute(*range(n), n + 3, n, n + 4, n + 1, n + 5, n + 2)  # (p, s, g, kc, nr, kr)
+    out = torch.empty(v.shape, dtype=dtype or w.dtype, device=w.device)
+    return out.copy_(v).reshape(*lead, -1)
+
+
+def _selected_ring(R, tm, A, D, K, De, Dh, topa) -> int:
+    """Offset of B2's weight ring in shared memory (SelectedLayout::ring):
+    the barriers, r, ccb, vals and the overlaid region."""
+    # r, ccb, vals, the two warpgroups' distance partials
+    head = _WG_BAR_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A) + 2 * 64 * 4
+    phase0 = 2 * 64 * D  # rnd(xh), the condition product's 64 rows
     substep = _a16(4 * R * D) + 4 * K * (R + 1) if topa else 0
-    tiles = 2 * tm * (_ld(D) + _ld(De) + _ld(Dh))  # cand, h, FFN hidden
-    return head + _a16(max(phase0, substep, tiles)) + _RING_BYTES
+    tiles = 2 * tm * (D + De + Dh)  # cand, h, FFN hidden
+    return -(-(head + _a16(max(phase0, substep, tiles))) // 128) * 128
+
+
+def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa, extra: int = 0) -> int:
+    """Shared memory of B2's bf16 kernel (SelectedLayout): the ring with as
+    many slots (4 to 16) as the limit leaves, and ``extra`` bytes at the
+    end (selcat's f32 xh)."""
+    ring = _selected_ring(R, tm, A, D, K, De, Dh, topa)
+    slots = max(_WG_RING[0], min(_WG_RING[1], (_SMEM_LIMIT - extra - ring) // _WG_SLAB_BYTES))
+    return ring + slots * _WG_SLAB_BYTES + extra
+
+
+def wg_grid(items: int, sms: int) -> tuple[int, int]:
+    """(cluster, blocks) of B2's bf16 kernel for ``items`` work items: a
+    cluster of _WG_CLUSTER blocks where every SM has an item, else 1;
+    blocks a whole number of clusters, at most one an SM."""
+    cluster = _WG_CLUSTER if items >= sms else 1
+    return cluster, min(-(-items // cluster) * cluster, sms // cluster * cluster)
+
+
+def _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms, row_bytes: int = 0,
+                      name: str = "selected_scores") -> LaunchPlan:
+    """B2's bf16 plan: the largest tile whose rows a work item (the most
+    that leave _SMS items, halved until it fits) fit with the ring's least
+    slots (and ``row_bytes`` more a row), on the grid of :func:`wg_grid`."""
+    _check_mma(stages, D=D, De=De, Dh=Dh)
+    for tm in _WG_TILES:
+        per = _per_item(NF, _ROWS)
+        while per:
+            smem = _selected_mma_smem(per, tm, A, D, K, De, Dh, topa, _a16(row_bytes * per))
+            if smem <= _SMEM_LIMIT:
+                items = -(-NF // per)
+                cluster, blocks = wg_grid(items, sms)
+                return LaunchPlan(tm, per, smem, items, blocks, True, cluster)
+            per //= 2
+    raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory "
+                     f"(D={D}, De={De}, Dh={Dh}, K={K}, A={A})")
 
 
 def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bool, topa: bool,
@@ -935,10 +1054,25 @@ def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bo
     """Launch plan of the selected-scores kernel for NF beam rows of A
     slots (``stages``: the step MLP's products, the condition product
     included); raises when no tile fits a block's shared memory."""
-    smem = _selected_mma_smem if bf16 else _selected_f32_smem
+    if bf16:
+        return _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms)
     return _item_plan("selected_scores", NF, lambda tm: _ROWS,
-                      lambda R, tm: smem(R, tm, A, D, K, De, Dh, topa), sms, bf16=bf16,
-                      stages=stages, widths=dict(D=D, De=De, Dh=Dh), dims=f"K={K}, A={A}")
+                      lambda R, tm: _selected_f32_smem(R, tm, A, D, K, De, Dh, topa), sms,
+                      bf16=False, stages=stages, widths=dict(D=D, De=De, Dh=Dh),
+                      dims=f"K={K}, A={A}")
+
+
+def selected_stream_bytes(plan: LaunchPlan, A: int, D: int, De: int, Dh: int, L: int, *,
+                          wfold: bool, proj: bool) -> int:
+    """Weight bytes a bf16 B2 launch of ``plan`` streams from L2: each work
+    item's condition product once and its tiles' products once a tile, in
+    the slab layout, read once for the ``plan.cluster`` blocks of a
+    cluster."""
+    head = _wg_elems(D, De)
+    tile = ((_wg_elems(D, De) if wfold else 0) + L * (_wg_elems(De, Dh) + _wg_elems(Dh, De))
+            + (_wg_elems(De, D) if proj else 0))
+    tiles = -(-(plan.per_item * A) // plan.tm)
+    return 2 * plan.items * (head + tiles * tile) // plan.cluster
 
 
 def _chain_tiles(tm, D, De, Dh, Wc, h0: bool, low_rank: bool) -> int:

@@ -1,7 +1,8 @@
 """Spans and counters that the port records about its own host work, on
 the clock of the torch profiler's events.
 
-A span is a named stretch of the host's time: ``with span(name, **ids):``.
+A span is a named stretch of the host's time: ``with span(name, **ids):``
+(``as s``, then ``s.set(**ids)`` adds ids found inside it).
 Spans nest; each record holds its name, start and end (``time.time_ns()``),
 its own id, its parent's id (the span open when it started, 0 for none)
 and its integer ids.  The request ids (:data:`REQUEST_IDS`: ``chunk``,
@@ -40,7 +41,9 @@ The spans, by layer (each name is fixed):
 - ``ops.kernels``: ``kernels.selected_scores``, ``kernels.select_rebuild``,
   ``kernels.fused_substep_scores`` and ``kernels.candidate_scores`` around
   each wrapper's CUDA path: its weight operands (the casts), its launch
-  plan and the launch.
+  plan and the launch; ``kernels.selected_scores`` has the plan's ids
+  ``tile_pairs`` (pairs a tile) and ``cluster`` (blocks that share each
+  weight slab).
 - ``train.train_step.make_train_step``: ``train.step`` (id ``step``, the
   step object's count), holding ``train.encode``, ``train.losses``,
   ``train.backward`` (``torch.autograd.grad``), ``train.stats`` (EMA and
@@ -49,7 +52,11 @@ The spans, by layer (each name is fixed):
 - ``utils.host_to_device``: ``io.upload`` (id ``bytes``).
 
 Counters: ``io.h2d_bytes``, the bytes copied host to device by
-``encode.upload`` and ``io.upload``, while recording; and
+``encode.upload`` and ``io.upload``, while recording;
+``kernels.weight_stream_bytes``, the weight bytes each bf16
+``selected_scores`` launch's plan streams from L2 (its tiles' and items'
+products, once a cluster: ``kernels.selected_stream_bytes``), while
+recording; and
 :data:`LAUNCHES`, the kernel launches by kernel (``ops.kernels``), always
 on and never cleared (its readers take differences).
 
@@ -95,6 +102,9 @@ class _Noop:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **ids: int) -> None:
+        pass
+
 
 NOOP = _Noop()
 
@@ -128,6 +138,10 @@ class _Open:
         _stack.append(self)
         self.start_ns = time.time_ns()
         return self
+
+    def set(self, **ids: int) -> None:
+        """Add ``ids`` to the open span (ids known only inside it)."""
+        self.ids = {**self.ids, **ids}
 
     def __exit__(self, *exc):
         end = time.time_ns()

@@ -111,6 +111,47 @@ def test_selected_scores_kernel_matches_plain(cuda, case, dtype):
                                rtol=rtol, atol=1e-4)
 
 
+# B2 at bf16 where the work items are ragged: NF = 1001 beam rows at the
+# IVF first step's F_in = 1, A = 32 (4 rows an item, 251 items: the last
+# item holds one row, and the last cluster of two has a block past the
+# last item), at the qinco2-S and qinco2-L widths, both routes.
+B2_RAGGED = {"S": CASES["S"][0], "L": CASES["L"][0]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["topa", "vals"])
+@pytest.mark.parametrize("case", sorted(B2_RAGGED))
+def test_selected_scores_ragged_items_and_clusters(cuda, case, route):
+    spec, p = _step(B2_RAGGED[case], "bfloat16", seed=11, device=cuda)
+    x, xh = _inputs(spec, 1, N=1001, seed=12, device=cuda)
+    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), 32,
+                                         route == "topa")
+    assert xh.shape[0] % plan.per_item and plan.items % plan.cluster
+    vals = _external_vals(spec, p, x, xh, 1, 32) if route == "vals" else None
+    got = kernels.selected_scores(spec, x, xh, p, 32, vals=vals)
+    torch.cuda.synchronize()
+    want = kernels.selected_scores_plain(spec, x, xh, p, 32, vals=vals)
+    _check_scores(got, want, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_selected_scores_largest_plan_launches_clean(cuda):
+    """B2 at the qinco2-L widths takes nearly all of a block's shared memory
+    (232,448 B on sm_90) and clusters of blocks: the launch is accepted
+    (the wrapper raises on a nonzero cudaGetLastError) and runs to the end
+    without a fault."""
+    spec, p = _step(CASES["L"][0], "bfloat16", seed=13, device=cuda)
+    x, xh = _inputs(spec, 32, N=1024, seed=14, device=cuda)
+    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), 16, True)
+    assert plan.smem > 224 * 1024 and plan.cluster > 1
+    got = kernels.selected_scores(spec, x, xh, p, 16)
+    torch.cuda.synchronize()
+    assert torch.cuda.is_available() and got.isfinite().all()
+    rows = slice(0, 512)  # the plain version on a stretch of the rows
+    want = kernels.selected_scores_plain(spec, x[:16], xh[rows], p, 16)
+    _check_scores(got[rows], want, "bfloat16")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(CASES))

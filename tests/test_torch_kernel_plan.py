@@ -83,6 +83,77 @@ def test_selected_plan_fills_the_card(preset, step):
 
 @pytest.mark.parametrize("step", sorted(STEPS))
 @pytest.mark.parametrize("preset", PRESETS)
+def test_selected_plan_wgmma_layout(preset, step):
+    """B2's bf16 plan on wgmma: tile rows, ring and cluster from the shapes.
+    128-pair tiles (two consumer warpgroups, one 64-row half each) where
+    cand, h and the FFN hidden of 128 pairs fit (qinco2-S), else 64 (both
+    warpgroups on one column half each); a ring of 4 to 16 slabs of 64 x
+    128 bf16 after the head and the region; blocks a whole number of
+    clusters, at most one an SM."""
+    spec = _spec(preset)
+    F_in, A = STEPS[step]
+    plan = _selected_plan(spec, F_in, A)
+    assert plan.tm == (128 if preset == "qinco2-S" else 64)
+    ring = kernels._selected_ring(plan.per_item, plan.tm, A, spec.D, spec.K, spec.De, spec.dh,
+                                  True)
+    assert ring % 128 == 0 and (plan.smem - ring) % 16384 == 0
+    assert 4 <= (plan.smem - ring) // 16384 <= 16
+    assert plan.cluster == 2 and plan.blocks % plan.cluster == 0
+    assert plan.blocks <= SMS and plan.items >= SMS
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_selected_plan_pairs_a_weight_byte_feeds(preset):
+    """Each weight byte B2 reads from L2 feeds tile x cluster pairs: 256 at
+    qinco2-S (128-pair tiles, clusters of 2), 128 at qinco2-M and -L
+    (64-pair tiles, clusters of 2), where the mma.sync kernel fed 128 and
+    64.  A launch with fewer work items than SMs runs no cluster."""
+    spec = _spec(preset)
+    plan = _selected_plan(spec, 32, 16)
+    assert plan.tm * plan.cluster == (256 if preset == "qinco2-S" else 128)
+    small = kernels.selected_plan(100, 16, spec.D, spec.K, spec.De, spec.dh, bf16=True,
+                                  topa=True, stages=2 + 2 * spec.L + int(_proj(spec)), sms=SMS)
+    assert (small.cluster, small.blocks) == (1, small.items)
+
+
+@pytest.mark.parametrize("shape", [(96, 200), (3, 384, 384), (2, 48, 16), (128, 128)],
+                         ids=["96x200", "3x384x384", "2x48x16", "128x128"])
+def test_wg_blocked_is_the_kernels_slab_layout(shape):
+    """``wg_blocked`` lays a weight out as csrc/wgmma.cuh reads it: pass by
+    pass (128 columns), slab by slab (64 rows), each slab W^T in 8 x 8 core
+    matrices; rows past kin and columns past nout zero."""
+    w = torch.randn(shape)
+    got = kernels.wg_blocked(w)
+    *lead, kin, nout = shape
+    P, Kp = -(-nout // 128), -(-kin // 64) * 64
+    assert got.shape == (*lead, Kp * P * 128)
+    k = torch.arange(Kp)[:, None]
+    n = torch.arange(P * 128)[None, :]
+    p, s = n // 128, k // 64
+    nn, kr = n % 128, k % 64
+    off = (p * Kp + s * 64) * 128 + ((nn // 8) * 8 + kr // 8) * 64 + (nn % 8) * 8 + kr % 8
+    want = torch.zeros((*lead, Kp, P * 128))
+    want[..., :kin, :nout] = w
+    torch.testing.assert_close(got[..., off], want, rtol=0, atol=0)
+
+
+def test_selected_stream_bytes_at_qinco2_L():
+    """The weight bytes a B2 launch streams from L2 (``kernels.
+    weight_stream_bytes``): every work item's condition product, then each
+    tile's products, in the slab layout, once a cluster."""
+    spec = _spec("qinco2-L")
+    plan = _selected_plan(spec, 32, 16)
+    head = 128 * 3 * 128  # W2 (128, 384): 2 slabs of 64 rows x 3 passes
+    tile = (128 * 3 * 128 * int(spec.fast) + 16 * 2 * 384 * 3 * 128
+            + (384 * 1 * 128 if _proj(spec) else 0))  # [wfold], 16 x (U, D), [out_proj]
+    tiles = -(-plan.per_item * 16 // plan.tm)
+    got = kernels.selected_stream_bytes(plan, 16, spec.D, spec.De, spec.dh, spec.L,
+                                        wfold=spec.fast, proj=_proj(spec))
+    assert got == 2 * plan.items * (head + tiles * tile) // plan.cluster
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
 def test_rebuild_plan_fills_the_card(preset, step):
     spec = _spec(preset)
     F_in, A = STEPS[step]

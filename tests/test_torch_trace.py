@@ -74,6 +74,19 @@ def test_recording_nests_with_parent_ids():
     assert tracing.span("x") is tracing.NOOP  # off again
 
 
+def test_a_span_takes_ids_found_inside_it():
+    """``set`` adds ids to the open span (the kernel wrappers' plan ids);
+    off, the no-op span takes them and records nothing."""
+    with tracing.recording():
+        with tracing.span("kernels.selected_scores", chunk=3) as sp:
+            sp.set(tile_pairs=64, cluster=4)
+    (rec,) = tracing.spans()
+    assert rec.ids == {"chunk": 3, "tile_pairs": 64, "cluster": 4}
+    with tracing.span("off") as sp:
+        sp.set(tile_pairs=1)
+    assert len(tracing.spans()) == 1
+
+
 def test_cap_counts_dropped_spans(monkeypatch):
     monkeypatch.setattr(tracing, "CAP", 2)
     with tracing.recording():
