@@ -29,7 +29,11 @@
 // cores (tc.cuh) over tiles of TM (vector, beam) pairs, activations as
 // bf16 in shared memory, weights streamed through a cp.async ring; the
 // f32 codeword and parent row of the final sum are read again from device
-// memory (L2).
+// memory (L2).  Where D is too wide for [h0 | rnd(cond)] and rnd(cand) of a
+// 64-pair tile beside the ring (D = 768 at every preset), the wrapper's
+// plan takes D in column passes: in_proj and the concat layer read the
+// codewords and the parent rows a chunk of columns at a time, again for
+// every pass over their output columns.
 // f32: select_rebuild_f32_kernel, the same walk over work items with the
 // rebuild MLP in IEEE f32 FFMA on the CUDA cores (f32_tile.cuh: TF32 would
 // be a different result), activations f32 in shared memory, the weights
@@ -57,6 +61,7 @@ struct RebuildArgs {
   int* parents;           // (N, F_out)
   int N, C, A_eff, F_in, F_out, K, res;
   int V;                  // vectors per work item
+  int kc;                 // columns of D a pass holds: D, or fewer on the D-passed plan
 };
 
 // Exact top-F_out of the V vectors from v0 (n_vecs of them real) in d_s,
@@ -107,13 +112,15 @@ __device__ __forceinline__ void select_beams(const RebuildArgs& g, float* d_s, i
 //   stage table | dists (V, C) f32 | codes, parents (V, F_out) int32 |
 //   cat [h0 | rnd(cond)] (TM, De + D), later the FFN hidden (TM, Dh) |
 //   rnd(cand) (TM, D) for in_proj, later h (TM, De) | the low-rank
-//   product (TM, Wc) | the weight ring.  Activations in bf16.
+//   product (TM, Wc) | the weight ring.  Activations in bf16.  On the
+//   D-passed plan (`passed`) a chunk of kc columns takes D's place in cat
+//   (of rnd(cond)) and in h (of rnd(cand)).
 struct RebuildLayout {
   unsigned d, code, par, cat, h, lr, ring, total;
-  __host__ __device__ RebuildLayout(const RebuildArgs& g, int TM) {
+  __host__ __device__ RebuildLayout(const RebuildArgs& g, int TM, bool passed = false) {
     using tc::align16;
     using tc::ld_of;
-    const size_t V = g.V, D = g.w.D, De = g.w.De, Dh = g.w.Dh;
+    const size_t V = g.V, D = passed ? g.kc : g.w.D, De = g.w.De, Dh = g.w.Dh;
     const size_t cat_w = ld_of(De + D) > ld_of(Dh) ? ld_of(De + D) : ld_of(Dh);
     const size_t h_w = ld_of(De > D ? De : D);
     d = tc::kStageBytes;
@@ -319,8 +326,12 @@ __global__ void __launch_bounds__(f32::kBlock, 1) select_rebuild_f32_kernel(Rebu
 
 // bf16 route: the rebuild MLP on the tensor cores.  A block walks the
 // work items blockIdx.x, blockIdx.x + gridDim.x, ...: V vectors each,
-// their V·F_out pairs in tiles of TM = 32·MT.
-template <int MT>
+// their V·F_out pairs in tiles of TM = 32·MT.  PASSED (the D-passed plan):
+// in_proj reads rnd(cand), and the concat layer the rnd(cond) half of its
+// A, a chunk of kc columns at a time (the maps of tc::mma_pass), filled
+// from device memory again for every pass over their output columns; the
+// concat layer's slabs then start on chunk edges (De a multiple of 32).
+template <int MT, bool PASSED = false>
 __global__ void __launch_bounds__(tc::kTcThreads, 1) select_rebuild_tc_kernel(RebuildArgs g) {
   using namespace tc;
   constexpr int TM = 32 * MT;
@@ -328,14 +339,15 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) select_rebuild_tc_kernel(Re
   const ChainWeights& w = g.w;
   const int C = g.C, F_out = g.F_out, D = w.D, De = w.De, Dh = w.Dh, Wc = w.Wc, V = g.V;
   const int tid = threadIdx.x;
-  const RebuildLayout lay(g, TM);
+  const RebuildLayout lay(g, TM, PASSED);
   float* d_s = reinterpret_cast<float*>(sm + lay.d);     // (V, C)
   int* code_s = reinterpret_cast<int*>(sm + lay.code);   // (V, F_out)
   int* par_s = reinterpret_cast<int*>(sm + lay.par);     // (V, F_out)
   bf16* cat_b = reinterpret_cast<bf16*>(sm + lay.cat);   // (TM, De + D), then (TM, Dh)
   bf16* h_b = reinterpret_cast<bf16*>(sm + lay.h);       // (TM, D) rnd(cand), then (TM, De)
   bf16* lr_b = reinterpret_cast<bf16*>(sm + lay.lr);     // (TM, Wc)
-  const int ldc = ld_of(De + D), ldd = ld_of(D), ldh = ld_of(De > D ? De : D);
+  const int Dw = PASSED ? g.kc : D;  // columns of D a buffer holds
+  const int ldc = ld_of(De + Dw), ldd = ld_of(Dw), ldh = ld_of(De > Dw ? De : Dw);
   const int ldf = ld_of(Dh), ldr = ld_of(Wc);
 
   // The weight stream, once per tile: [in_proj], concat, [concat_w2],
@@ -374,47 +386,108 @@ __global__ void __launch_bounds__(tc::kTcThreads, 1) select_rebuild_tc_kernel(Re
     for (int p0 = 0; p0 < n_pairs; p0 += TM) {
       const int rows = max(0, min(TM, n_valid - p0));
       __syncthreads();  // codes and parents are in; the last tile's readers are done
-      // the f32 codeword (rounded) and parent row (rounded into cat), 4
-      // columns a thread, 4 pairs of loads in flight
-      bf16* cand_dst = w.in_proj ? h_b : cat_b;
-      const int ld_cand = w.in_proj ? ldd : ldc;
-      for (int e0 = tid; e0 < rows * (D / 4); e0 += 4 * kTcThreads) {
-        float4 cv[4], hv[4];
+      // rows t < rows of dst (row stride ld) take columns c0 .. c0 + n - 1
+      // of the f32 rows src(t) (null: zeros), rounded; 4 columns a thread,
+      // 4 loads in flight
+      const auto load_rows = [&](bf16* dst, int ld, int c0, int n, auto src) {
+        const int n4 = n / 4;
+        for (int e0 = tid; e0 < rows * n4; e0 += 4 * kTcThreads) {
+          float4 v[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
-          cv[u] = hv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (t < rows) {
-            const int p = p0 + t, code = code_s[p];
-            if (code < g.K) cv[u] = *reinterpret_cast<const float4*>(g.codebook + (size_t)code * D + c);
-            hv[u] = *reinterpret_cast<const float4*>(g.xh + (row_of(p) * D + c));
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / n4;
+            const float* row = e < rows * n4 ? src(t) : nullptr;
+            v[u] = row ? *reinterpret_cast<const float4*>(row + c0 + 4 * (e - t * n4))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / n4, c = 4 * (e - t * n4);
+            if (e >= rows * n4) break;
+            st_bf2(dst + t * ld + c, v[u].x, v[u].y);
+            st_bf2(dst + t * ld + c + 2, v[u].z, v[u].w);
           }
         }
+      };
+      const auto cand_row = [&](int t) -> const float* {
+        const int code = code_s[p0 + t];
+        return code < g.K ? g.codebook + (size_t)code * D : nullptr;
+      };
+      const auto cond_row = [&](int t) -> const float* { return g.xh + row_of(p0 + t) * D; };
+      // in_proj's A: rnd(cand), in h; a chunk of kc columns at a time (PASSED)
+      const auto cand_cols = [&](int k0) {
+        if constexpr (PASSED) {
+          const int kl = k0 % g.kc;
+          if (kl == 0) {
+            load_rows(h_b, ldd, k0, min(g.kc, D - k0), cand_row);
+            __syncthreads();
+          }
+          return kl;
+        } else {
+          return k0;
+        }
+      };
+      // the concat layer's A: h0 (or rnd(cand)) whole, then rnd(cond); a
+      // chunk of kc columns of it at a time (PASSED)
+      const auto cat_cols = [&](int k0) {
+        if constexpr (PASSED) {
+          if (k0 < De) return k0;
+          const int kl = (k0 - De) % g.kc;
+          if (kl == 0) {
+            load_rows(cat_b + De, ldc, k0 - De, min(g.kc, D - (k0 - De)), cond_row);
+            __syncthreads();
+          }
+          return De + kl;
+        } else {
+          return k0;
+        }
+      };
+      if constexpr (PASSED) {
+        if (!w.in_proj) load_rows(cat_b, ldc, 0, D, cand_row);  // h0 = rnd(cand), De = D
+      } else {
+        // the f32 codeword (rounded) and parent row (rounded into cat), 4
+        // columns a thread, 4 pairs of loads in flight
+        bf16* cand_dst = w.in_proj ? h_b : cat_b;
+        const int ld_cand = w.in_proj ? ldd : ldc;
+        for (int e0 = tid; e0 < rows * (D / 4); e0 += 4 * kTcThreads) {
+          float4 cv[4], hv[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
-          if (t >= rows) break;
-          st_bf2(cat_b + t * ldc + De + c, hv[u].x, hv[u].y);
-          st_bf2(cat_b + t * ldc + De + c + 2, hv[u].z, hv[u].w);
-          st_bf2(cand_dst + t * ld_cand + c, cv[u].x, cv[u].y);
-          st_bf2(cand_dst + t * ld_cand + c + 2, cv[u].z, cv[u].w);
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+            cv[u] = hv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (t < rows) {
+              const int p = p0 + t, code = code_s[p];
+              if (code < g.K) cv[u] = *reinterpret_cast<const float4*>(g.codebook + (size_t)code * D + c);
+              hv[u] = *reinterpret_cast<const float4*>(g.xh + (row_of(p) * D + c));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kTcThreads, t = e / (D / 4), c = 4 * (e - t * (D / 4));
+            if (t >= rows) break;
+            st_bf2(cat_b + t * ldc + De + c, hv[u].x, hv[u].y);
+            st_bf2(cat_b + t * ldc + De + c + 2, hv[u].z, hv[u].w);
+            st_bf2(cand_dst + t * ld_cand + c, cv[u].x, cv[u].y);
+            st_bf2(cand_dst + t * ld_cand + c + 2, cv[u].z, cv[u].w);
+          }
         }
       }
       const auto same = [](int, int, float v0, float v1) { return make_float2(v0, v1); };
       // h0 = rnd(rnd(cand)·P) into cat[:, :De]
       if (w.in_proj)
-        mma_stage_bf16<MT>(ring, h_b, ldd, D, De, rows, cat_b, ldc, nullptr, 0, same, NoLast{});
+        mma_stage_bf16<MT>(ring, h_b, ldd, D, De, rows, cat_b, ldc, nullptr, 0, same, NoLast{},
+                           cand_cols);
       // h = rnd(h0 + rnd([h0 | c]·W (·W2) + b))
       const auto bias = [&](int, int c, float v0, float v1) {
         return make_float2(rnd<true>(v0 + w.concat_b[c]), rnd<true>(v1 + w.concat_b[c + 1]));
       };
       if (w.concat_w2) {
         mma_stage_bf16<MT>(ring, cat_b, ldc, De + D, Wc, rows, lr_b, ldr, nullptr, 0, same,
-                           NoLast{});
+                           NoLast{}, cat_cols);
         mma_stage_bf16<MT>(ring, lr_b, ldr, Wc, De, rows, h_b, ldh, cat_b, ldc, bias, NoLast{});
       } else {
         mma_stage_bf16<MT>(ring, cat_b, ldc, De + D, De, rows, h_b, ldh, cat_b, ldc, bias,
-                           NoLast{});
+                           NoLast{}, cat_cols);
       }
       ffn_stages<MT>(ring, h_b, ldh, cat_b, ldf, w.L, De, Dh, rows, NoLast{});
       // xhat = (out + cand) + cond, from the f32 codeword and parent row
@@ -470,14 +543,23 @@ extern "C" int qt_select_rebuild(const float* dists, const float* xh, const floa
                                  const void* out_proj, float* xhat, int* codes, int* parents,
                                  int N, int C, int A_eff, int F_in, int F_out, int D, int K,
                                  int De, int Dh, int L, int Wc, int tm, int vecs, int blocks,
-                                 int smem, int bf16, int res, void* stream) {
+                                 int smem, int kc, int bf16, int res, void* stream) {
   using namespace qt;
   if (N == 0) return 0;
   const ChainWeights w{in_proj, concat_w, concat_w2, concat_b, ffn_up, ffn_down, out_proj,
                        D,       De,       Dh,        L,        Wc};
   const RebuildArgs a{dists, xh, codebook, w, xhat, codes, parents, N, C, A_eff, F_in, F_out,
-                      K,     res, vecs};
+                      K,     res, vecs,     kc};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && kc < D) {
+    // the D-passed plan: 64-pair tiles, chunks of whole 64-row slabs, the
+    // concat layer's chunks on its 32-row slabs
+    if (rebuild_stages(w) > tc::kMaxStages || tm != 64 || kc < 64 || kc % 64 || De % 32 ||
+        (size_t)smem < RebuildLayout(a, tm, true).total || vecs < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(tc::launch_tc(select_rebuild_tc_kernel<2, true>, blocks, smem, s, a));
+  }
+  if (kc != D) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     if (rebuild_stages(w) > tc::kMaxStages || (size_t)smem < RebuildLayout(a, tm).total || vecs < 1 ||
         (tm != 64 && tm != 128))

@@ -56,6 +56,12 @@
 //   12.5 B a cycle an SM and 16 KB slabs from four threads lift it past
 //   what the products take; clusters of 4 (256 pairs a byte at qinco2-L)
 //   ran 12% slower than 2 there, the kernel not being bound by L2.
+//   Where the rows are too wide for that (D = 768 at qinco2-M and -L: cand,
+//   h and the hidden of 64 pairs with r and the ring take more than a
+//   block's shared memory), the wrapper's plan takes D in column passes:
+//   the products D -> De read their A a chunk of columns at a time,
+//   filled again from L2 for every pass over their output columns, and
+//   the distance reads the codewords again from the table (L2).
 //   f32 (pallas=true's external vals; fast_encode=true pallas=true at f32
 //   in-kernel): selected_scores_f32_kernel, every MLP product in IEEE f32
 //   FFMA on the CUDA cores (f32_tile.cuh: TF32 would be a different
@@ -252,13 +258,24 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
                                   const void* ffn_up, const void* ffn_down, const void* out_proj,
                                   float* out, int NF, int F_in, int D, int K, int De, int Dh,
                                   int L, int A, int Wt, int tm, int rows, int blocks, int smem,
-                                  int cluster, int bf16, int res, void* stream) {
+                                  int cluster, int kc, int bf16, int res, void* stream) {
   using namespace qt;
   if (NF == 0) return 0;
   const SelectedArgs a{x,      xh,       vals,     sub_t, cn2, table, wfold, w2, concat_b,
                        ffn_up, ffn_down, out_proj, out,   NF,  F_in,  D,     K,  De,
-                       Dh,     L,        A,        Wt,    res, rows};
+                       Dh,     L,        A,        Wt,    res, rows,  kc};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && kc < D) {
+    // the D-passed plan: 64-pair tiles, chunks of whole slabs
+    if (selected_stages(a) > tc::kMaxStages || tm != 64 || kc < wg::kSlabK ||
+        kc % wg::kSlabK || !out_proj || rows < 1 || rows > kRows ||
+        (cluster != 1 && cluster != 2 && cluster != 4) || blocks < cluster ||
+        blocks % cluster || SelectedLayout(a, tm, vals == nullptr, true).slots(smem, 0) < wg::kMinRing)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_selected(selected_scores_tc_kernel<1, SelCut::kFull, true>,
+                                            blocks, smem, cluster, s, a));
+  }
+  if (kc != D) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     // the plan's tile, rows a work item, cluster and shared memory (at
     // least wg::kMinRing slots of the ring), or nothing

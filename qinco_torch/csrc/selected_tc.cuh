@@ -28,6 +28,7 @@ struct SelectedArgs {
   float* out;             // (NF, A) packed distances
   int NF, F_in, D, K, De, Dh, L, A, Wt, res;
   int R;                  // beam rows per work item
+  int kc;                 // columns of D a pass holds: D, or fewer on the D-passed plan
 };
 
 // The exact top-A of a work item's rows, each warp taking its rows
@@ -157,10 +158,14 @@ struct SelectedStages {
 //   f32;  then per tile cand (TM, D), h (TM, De) and the FFN hidden
 //   (TM, Dh) bf16 | the ring's slots (128-byte aligned), as many as the
 //   launch's shared memory holds, at most wg::kMaxRing.  The bf16 buffers
-//   are in the core-matrix layout (wg::act_off).
+//   are in the core-matrix layout (wg::act_off).  On the D-passed plan
+//   (`passed`) the region holds a chunk of kc columns of rnd(xh) (64, kc),
+//   and per tile no cand: h (TM, De), then in one place the FFN hidden, a
+//   chunk of cand (TM, kc) and one output pass's columns of cand (TM,
+//   wg::kPass), as wide as the widest.
 struct SelectedLayout {
   unsigned r, ccb, val, part, u, cand, h, big, ring;
-  __host__ __device__ SelectedLayout(const SelectedArgs& g, int TM, bool topa) {
+  __host__ __device__ SelectedLayout(const SelectedArgs& g, int TM, bool topa, bool passed = false) {
     using tc::align16;
     const size_t R = g.R;
     r = wg::kBarBytes;
@@ -168,12 +173,17 @@ struct SelectedLayout {
     val = ccb + align16(4 * R * g.De);
     part = val + align16(4 * R * g.A);
     u = part + 2 * 64 * 4;
-    const size_t phase0 = 2 * 64 * (size_t)g.D;
+    const size_t phase0 = 2 * 64 * (size_t)(passed ? g.kc : g.D);
     const size_t substep = topa ? align16(4 * R * g.D) + 4 * (size_t)g.K * (R + 1) : 0;
     cand = u;
-    h = cand + 2 * (size_t)TM * g.D;
+    h = passed ? u : cand + 2 * (size_t)TM * g.D;
     big = h + 2 * (size_t)TM * g.De;
-    const size_t tiles = big + 2 * (size_t)TM * g.Dh - u;
+    size_t wide = g.Dh;  // the FFN hidden; passed, also a chunk of cand or a pass's columns of it
+    if (passed) {
+      wide = wide > (size_t)g.kc ? wide : g.kc;
+      wide = wide > (size_t)wg::kPass ? wide : wg::kPass;
+    }
+    const size_t tiles = big + 2 * (size_t)TM * wide - u;
     size_t region = phase0 > substep ? phase0 : substep;
     region = region > tiles ? region : tiles;
     ring = (u + align16(region) + 127) / 128 * 128;
@@ -220,7 +230,14 @@ enum class SelCut : int {
 // pairs in tiles of TM (pair p = i * A + a); under kPerSlot slot-major,
 // one slot's R rows a tile.  A cut other than kFull and kSelCat takes the
 // in-kernel top-A route only; kSelCat the external vals only.
-template <int NW, SelCut CUT>
+//
+// PASSED (the D-passed plan; kFull, NW = 1, with out_proj): no buffer holds
+// D whole.  The products D -> De (the condition product, the lean fetch's)
+// read their A a chunk of kc columns at a time (wg::product_chunked),
+// filled from device memory again for every pass over their output
+// columns, and before each pass of out_proj the pairs' codewords of its
+// columns come again from the table (L2) for the distance.
+template <int NW, SelCut CUT, bool PASSED = false>
 __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(SelectedArgs g) {
   using namespace tc;
   using wg::act_off;
@@ -234,11 +251,12 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
   constexpr bool kOneFetch =  // one codeword a row, stored to its A slots
       CUT == SelCut::kMlpOnly || CUT == SelCut::kNoDist || CUT == SelCut::kShell;
   constexpr bool kMlp = CUT != SelCut::kShell;  // the per-pair products
+  static_assert(!PASSED || (NW == 1 && CUT == SelCut::kFull), "the D-passed plan is kFull's");
   extern __shared__ __align__(128) unsigned char sm[];
   const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt, R = g.R;
   const int tid = threadIdx.x;
   const bool topa = g.vals == nullptr, proj = g.out_proj != nullptr;
-  const SelectedLayout lay(g, TM, topa);
+  const SelectedLayout lay(g, TM, topa, PASSED);
   const size_t extra = CUT == SelCut::kSelCat ? align16(4 * (size_t)R * D) : 0;
   const uint32_t dyn = wg::dynamic_smem_bytes(), base = smem_addr(sm);
   float* r_s = reinterpret_cast<float*>(sm + lay.r);      // (R, D) residual target
@@ -296,8 +314,10 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
         hv = *reinterpret_cast<const float4*>(g.xh + (size_t)(row0 + i) * D + c);
         xv = *reinterpret_cast<const float4*>(g.x + (size_t)((row0 + i) / g.F_in) * D + c);
       }
-      st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c, D)), hv.x, hv.y);
-      st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c + 2, D)), hv.z, hv.w);
+      if constexpr (!PASSED) {
+        st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c, D)), hv.x, hv.y);
+        st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c + 2, D)), hv.z, hv.w);
+      }
       *reinterpret_cast<float4*>(r_s + i * D + c) =
           make_float4(xv.x - hv.x, xv.y - hv.y, xv.z - hv.z, xv.w - hv.w);
     }
@@ -315,24 +335,38 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
     // ---- the condition half of the concat layer: ccb = rnd(xh)·W2 + b, on
     // warpgroup 0 (its 64 rows hold the R <= 32 rows); every epilogue
     // below loads what it reads before it stores anything
-    wg::product<N>(ring, base + lay.u, D, D, De, col, NW == 1 || wgi == 0,
-                   [&](float(&d)[N / 2], int c0) {
-        float2 b[kNJ];
+    const auto ccb_out = [&](float(&d)[N / 2], int c0) {
+      float2 b[kNJ];
 #pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const int c = c0 + frag_col(j);
-          b[j] = c < De ? *reinterpret_cast<const float2*>(g.concat_b + c) : make_float2(0.f, 0.f);
-        }
+      for (int j = 0; j < kNJ; ++j) {
+        const int c = c0 + frag_col(j);
+        b[j] = c < De ? *reinterpret_cast<const float2*>(g.concat_b + c) : make_float2(0.f, 0.f);
+      }
 #pragma unroll
-        for (int j = 0; j < kNJ; ++j) {
-          const int c = c0 + frag_col(j);
+      for (int j = 0; j < kNJ; ++j) {
+        const int c = c0 + frag_col(j);
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (c < De && frag_row(h) < R)
-              *reinterpret_cast<float2*>(ccb_s + frag_row(h) * De + c) =
-                  make_float2(d[4 * j + 2 * h] + b[j].x, d[4 * j + 2 * h + 1] + b[j].y);
+        for (int h = 0; h < 2; ++h)
+          if (c < De && frag_row(h) < R)
+            *reinterpret_cast<float2*>(ccb_s + frag_row(h) * De + c) =
+                make_float2(d[4 * j + 2 * h] + b[j].x, d[4 * j + 2 * h + 1] + b[j].y);
+      }
+    };
+    if constexpr (PASSED) {  // rnd(xh) a chunk of kc columns at a time, rows past n_rows zero
+      wg::product_chunked<N>(ring, base + lay.u, g.kc, D, De, col, true, ccb_out, [&](int, int c0) {
+        const int n4 = g.kc / 4, w = min(g.kc, D - c0);
+        for (int e = tid; e < R * n4; e += kThreads) {
+          const int i = e / n4, c = 4 * (e - i * n4);
+          float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < n_rows && c < w)
+            hv = *reinterpret_cast<const float4*>(g.xh + (size_t)(row0 + i) * D + c0 + c);
+          st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c, g.kc)), hv.x, hv.y);
+          st_bf2(reinterpret_cast<bf16*>(xh_b + act_off(i, c + 2, g.kc)), hv.z, hv.w);
         }
       });
+    } else {
+      wg::product<N>(ring, base + lay.u, D, D, De, col, NW == 1 || wgi == 0, ccb_out);
+    }
     f32::sync();
 
     if (!topa) {
@@ -378,7 +412,7 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
             *reinterpret_cast<uint4*>(cand_b + act_off(t, 8 * j, D)) =
                 t < rows ? v : make_uint4(0, 0, 0, 0);
         }
-      } else {
+      } else if constexpr (!PASSED) {
         // fetch the codewords, 8 bf16 a thread, 4 loads in flight; a
         // warp's threads take 32 rows of one 8-column chunk, so each 8 of
         // them store to the 8 rows of one core matrix (no bank twice)
@@ -414,8 +448,11 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
       wg::fence_proxy_async();
       f32::sync();  // cand and h are in
 
-      const auto cand2 = [&](int t, int c) {
-        return ld_bf2(reinterpret_cast<const bf16*>(cand_b + act_off(t, c, D)));
+      const auto cand2 = [&](int t, int c) {  // pair t's codeword, columns c, c + 1
+        if constexpr (PASSED)  // the columns of out_proj's pass, staged in the hidden's place
+          return ld_bf2(reinterpret_cast<const bf16*>(hid_b + act_off(t, c % wg::kPass, wg::kPass)));
+        else
+          return ld_bf2(reinterpret_cast<const bf16*>(cand_b + act_off(t, c, D)));
       };
       const auto write = [&](int t, float d) {  // row t's distance, packed with its id
         const int p = pair(t, p0);
@@ -480,7 +517,7 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
         int crow[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) crow[h] = min(row(T0 + frag_row(h), p0), R - 1);
-        wg::product<N>(ring, a_cand, D, D, De, col, on, [&](float(&d)[N / 2], int c0) {
+        const auto h_out = [&](float(&d)[N / 2], int c0) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             float2 cb[kNJ / 2][2];
@@ -502,7 +539,30 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
                          d[4 * j + 2 * h + 1] + cb[jj][h].y);
             }
           }
-        });
+        };
+        if constexpr (PASSED) {  // cand a chunk of kc columns at a time, in the hidden's place
+          wg::product_chunked<N>(ring, base + lay.big, g.kc, D, De, col, on, h_out, [&](int, int c0) {
+            const int n8 = g.kc / 8, w8 = min(g.kc, D - c0) / 8;
+            for (int e0 = tid; e0 < TM * n8; e0 += 4 * kThreads) {
+              uint4 v[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+                v[u] = make_uint4(0, 0, 0, 0);
+                if (t < rows && j < w8)
+                  v[u] = *reinterpret_cast<const uint4*>(
+                      table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + c0 + 8 * j);
+              }
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+                if (j < n8) *reinterpret_cast<uint4*>(hid_b + act_off(t, 8 * j, g.kc)) = v[u];
+              }
+            }
+          });
+        } else {
+          wg::product<N>(ring, a_cand, D, D, De, col, on, h_out);
+        }
         product_sync();
       }
       // FFN blocks: up = rnd(relu(h·U_l)); h = rnd(h + rnd(up·D_l)); the last
@@ -552,10 +612,32 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
         });
         product_sync();
       }
-      if (proj)
-        wg::product<N>(ring, a_h, De, De, D, col, on, [&](float(&d)[N / 2], int c0) {
-          score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); });
+      const auto proj_out = [&](float(&d)[N / 2], int c0) {
+        score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); });
+      };
+      if constexpr (PASSED) {  // before each pass, its columns of the pairs' codewords
+        wg::product_chunked<N>(ring, a_h, De, De, D, col, on, proj_out, [&](int c, int) {
+          const int n8 = wg::kPass / 8, w8 = min(wg::kPass, D - c) / 8;
+          for (int e0 = tid; e0 < TM * n8; e0 += 4 * kThreads) {
+            uint4 v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+              v[u] = make_uint4(0, 0, 0, 0);
+              if (t < rows && j < w8)
+                v[u] = *reinterpret_cast<const uint4*>(
+                    table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + c + 8 * j);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+              if (j < n8) *reinterpret_cast<uint4*>(hid_b + act_off(t, 8 * j, wg::kPass)) = v[u];
+            }
+          }
         });
+      } else if (proj) {
+        wg::product<N>(ring, a_h, De, De, D, col, on, proj_out);
+      }
       if (!proj && g.L == 0) {  // out = h, no product left to carry the sums: a thread a pair
         for (int t = T0 + (tid & 127); t < min(rows, T0 + 64) && (NW == 2 || wgi == 0); t += 128) {
           const float* r = r_s + row(t, p0) * D;

@@ -208,12 +208,22 @@ __device__ __forceinline__ void slab_mma(float (&d)[MT][4][4], uint32_t a, int a
   }
 }
 
+// Where a product's slab at K row k0 finds its A columns in the buffer:
+// k0 itself, A held whole.  A map for an A that comes in chunks (the
+// D-passed plans) fills the buffer on the first slab of each chunk, after
+// the ring's block barrier (the last slab's reads are done), and meets the
+// block again before it returns.
+struct SameCols {
+  __device__ int operator()(int k0) const { return k0; }
+};
+
 // The accumulation of one 128-column pass of out = A·W: the warp's
-// (32·MT / 2) x 32 block of it in acc, for m16 tiles holding rows < rows.
-template <int MT>
+// (32·MT / 2) x 32 block of it in acc, for m16 tiles holding rows < rows;
+// cols(k0) the A column of the slab at K row k0.
+template <int MT, typename Cols>
 __device__ __forceinline__ void mma_pass(WeightRing& ring, uint32_t a, int lda, int kin, bool on,
                                          bool hi, int mt_on, uint32_t b_lane,
-                                         float (&acc)[MT][4][4]) {
+                                         float (&acc)[MT][4][4], Cols cols) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -222,7 +232,8 @@ __device__ __forceinline__ void mma_pass(WeightRing& ring, uint32_t a, int lda, 
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
   for (int k0 = 0; k0 < kin; k0 += kSlabK) {
     const uint32_t B = ring.acquire();
-    if (on) slab_mma<MT>(acc, a + k0 * 2, 32 * lda, B + b_lane, min(kSlabK, kin - k0), hi, mt_on);
+    const int k = cols(k0);
+    if (on) slab_mma<MT>(acc, a + k * 2, 32 * lda, B + b_lane, min(kSlabK, kin - k0), hi, mt_on);
   }
 }
 
@@ -247,16 +258,16 @@ struct WarpTile {
 // v0, v1) receives the f32 sums of columns c and c + 1 of row t.  The ring
 // synchronises the block before each slab, so whatever the block wrote
 // before the call is visible to the first slab's reads; epi may write any
-// buffer but A and the ring.
-template <int MT, typename Epi>
+// buffer but A and the ring.  cols maps K rows onto A's columns (SameCols).
+template <int MT, typename Epi, typename Cols = SameCols>
 __device__ __forceinline__ void mma_stage(WeightRing& ring, const bf16* A, int lda, int kin,
-                                          int nout, int rows, Epi epi) {
+                                          int nout, int rows, Epi epi, Cols cols = Cols{}) {
   const WarpTile w(A, lda, rows, std::integral_constant<int, MT>{});
   for (int c0 = 0; c0 < nout; c0 += kPass) {
     const int wc = c0 + w.nw;
     const bool on = wc < nout, hi = wc + 16 < nout;  // the warp's two n16 halves
     float acc[MT][4][4];
-    mma_pass<MT>(ring, w.a, lda, kin, on, hi, w.mt_on, w.b_lane, acc);
+    mma_pass<MT>(ring, w.a, lda, kin, on, hi, w.mt_on, w.b_lane, acc, cols);
     if (!on) continue;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -283,18 +294,19 @@ __device__ __forceinline__ void mma_stage(WeightRing& ring, const bf16* A, int l
 // or dst = rnd(op(...)) without res.  op returns the f32 pair for columns c
 // and c + 1 of row t; last(t, c, o0, o1) receives the stored values of
 // rows t < rows.  Rows past rows are written too, from whatever A holds
-// there: nothing reads them.
-template <int MT, typename Op, typename Last>
+// there: nothing reads them.  cols as mma_stage's.
+template <int MT, typename Op, typename Last, typename Cols = SameCols>
 __device__ __forceinline__ void mma_stage_bf16(WeightRing& ring, const bf16* A, int lda, int kin,
                                                int nout, int rows, bf16* dst, int ldd,
-                                               const bf16* res, int ldr, Op op, Last last) {
+                                               const bf16* res, int ldr, Op op, Last last,
+                                               Cols cols = Cols{}) {
   const WarpTile w(A, lda, rows, std::integral_constant<int, MT>{});
   const int r16 = (w.lane & 15), c8 = (w.lane >> 4) * 8;
   for (int c0 = 0; c0 < nout; c0 += kPass) {
     const int wc = c0 + w.nw;
     const bool on = wc < nout, hi = wc + 16 < nout;
     float acc[MT][4][4];
-    mma_pass<MT>(ring, w.a, lda, kin, on, hi, w.mt_on, w.b_lane, acc);
+    mma_pass<MT>(ring, w.a, lda, kin, on, hi, w.mt_on, w.b_lane, acc, cols);
     if (!on) continue;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {

@@ -378,5 +378,61 @@ __device__ __forceinline__ void product(Ring_& ring, uint32_t a, int a_w, int ki
   }
 }
 
+// product() with a fill before each chunk of K (the D-passed plans): A's
+// columns come in chunks of kc (a multiple of kSlabK; kin itself for one
+// chunk), fill(p0, c0) writing columns c0 .. c0 + kc - 1 of the tile's
+// rows into the buffer at a (width kc, the core-matrix layout) for the
+// pass over output columns p0 .. p0 + kPass - 1, or whatever else the
+// pass's epilogue reads.  Each pass walks the chunks again.  Before a fill
+// every product on the buffer has completed, its slabs are released and
+// the 8 consumer warps meet; after it they meet again, the writes fenced
+// for the products.  The sums are product()'s, in the same order.  One
+// loop over K with the fill under a branch: the chunks as a loop of their
+// own (or the passes and chunks as one loop) made ptxas serialize the
+// wgmmas (C7520).  Called by every consumer thread, with the same
+// arguments but `on`.
+template <int N, class Ring_, class Epi, class Fill>
+__device__ __forceinline__ void product_chunked(Ring_& ring, uint32_t a, int kc, int kin, int nout,
+                                                int col, bool on, Epi epi, Fill fill) {
+  const uint32_t sbo = 16 * kc, half = 2 * kSlabK * col;
+  for (int p0 = 0; p0 < nout; p0 += kPass) {
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+    fence_operands(d);
+    mma_fence();
+    int held = 0;  // slabs whose products may still be in flight
+    for (int k0 = 0; k0 < kin; k0 += kSlabK) {
+      const int kl = k0 % kc;
+      if (kl == 0) {
+        mma_wait<0>();
+        for (; held > 0; --held) ring.release();
+        f32::sync();
+        fill(p0, k0);
+        fence_proxy_async();
+        f32::sync();
+        mma_fence();
+      }
+      const uint32_t b = ring.acquire() + half;
+      mma_async(d, desc(a + 16 * kl, 128, sbo), desc(b, 128, 16 * kSlabK), k0 > 0);
+#pragma unroll
+      for (int kk = 1; kk < kSlabK / 16; ++kk) {
+        const int k = k0 + 16 * kk < kin ? kl + 16 * kk : kl;
+        mma_async(d, desc(a + 16 * k, 128, sbo), desc(b + 256 * kk, 128, 16 * kSlabK), 1);
+      }
+      mma_commit();
+      if (++held > 2) {  // two slabs' products stay in flight
+        mma_wait<2>();
+        ring.release();
+        --held;
+      }
+    }
+    mma_wait<0>();
+    for (; held > 0; --held) ring.release();
+    fence_operands(d);
+    if (on) epi(d, p0 + col);
+  }
+}
+
 }  // namespace wg
 }  // namespace qt

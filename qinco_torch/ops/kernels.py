@@ -38,7 +38,15 @@ copies in the blocked layout of :func:`blocked`).  :func:`selected_plan`,
 :func:`fused_plan`,
 :func:`candidate_plan` and :func:`rebuild_plan` work out each launch
 (tile, rows or vectors per work item, shared memory, blocks) from the
-shapes alone, and raise where nothing fits.  The CPU tests
+shapes alone, and raise where nothing fits.  Where the data's width D
+leaves no one-pass plan room, B2 and B3 at bf16 take D in column passes
+(the plan's ``d_passes``): the D-wide operands of the products D -> De
+(the candidate codewords, the beam rows) come into a buffer one chunk of
+columns at a time, again for each pass over the product's output
+columns, and the D-wide output (out_proj, with the codeword and the
+target) is formed pass by pass from device memory (L2); each wrapper's
+span then carries ``d_passes`` and the ``refetch_bytes`` the passes read
+again.  The CPU tests
 (``tests/test_torch_kernel_plan.py``) hold the plans; ``chip_smoke.py``
 and ``tests/test_torch_cuda.py`` hold each kernel against its plain
 version on the card.
@@ -63,8 +71,8 @@ from ..models.spec import QincoSpec
 # name -> (source, pointer arguments, int arguments) of the C entry point
 # ``qt_<name>(pointers..., ints..., stream)``.
 _KERNELS = {
-    "selected_scores": ("selected_scores.cu", 13, 16),
-    "select_rebuild": ("select_rebuild.cu", 13, 17),
+    "selected_scores": ("selected_scores.cu", 13, 17),
+    "select_rebuild": ("select_rebuild.cu", 13, 18),
     "fused_substep_scores": ("fused_substep_scores.cu", 12, 19),
     "candidate_scores": ("candidate_scores.cu", 12, 15),
     # the phase-breakdown kernels of B2 and B4 (ops/breakdown.py)
@@ -356,11 +364,22 @@ def selected_scores(
     if xh.device.type == "cpu":
         return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in,
                                       vals)
+    return _selected_cuda(spec, x, xh, p, n_codes, F_in, vals)
+
+
+def _selected_cuda(spec: QincoSpec, x, xh, p, n_codes: int, F_in: int, vals) -> torch.Tensor:
+    """The CUDA path of :func:`selected_scores`, in its span
+    ``kernels.selected_scores`` with the plan's ids; counts the bytes its
+    column passes read again (``kernels.refetch_bytes``)."""
     with tracing.span("kernels.selected_scores") as sp:
         _require_cuda(xh)
         w = _selected_weights(spec, p, _selected_stream(spec))
         plan = _selected_launch_plan(spec, xh, w, n_codes, vals is None)
-        sp.set(tile_pairs=plan.tm, cluster=plan.cluster)
+        refetch = selected_refetch_bytes(plan, n_codes, xh.shape[1], w.concat_b.shape[0],
+                                         wfold=w.wfold is not None, res=bool(_res(spec)))
+        sp.set(tile_pairs=plan.tm, cluster=plan.cluster, d_passes=plan.d_passes,
+               refetch_bytes=refetch)
+        tracing.count("kernels.refetch_bytes", refetch)
         return _selected_launch(spec, x, xh, w, n_codes, F_in, vals, plan)
 
 
@@ -402,7 +421,8 @@ def _selected_launch(spec: QincoSpec, x, xh, w: _SelectedWeights, n_codes: int, 
              w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
              w.out_proj, out],
             [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
-             plan.smem, plan.cluster, _is_bf16(spec), _res(spec)])
+             plan.smem, plan.cluster, d_pass_width(D, plan.d_passes), _is_bf16(spec),
+             _res(spec)])
     return out
 
 
@@ -782,7 +802,14 @@ def select_rebuild(
     if dists.device.type == "cpu":
         return select_rebuild_plain(spec, dists, xh, p, A_eff, F_out)
     F_in = _check_rebuild(spec, dists, xh, p, A_eff, F_out)
-    with tracing.span("kernels.select_rebuild"):
+    return _rebuild_cuda(spec, dists, xh, p, A_eff, F_out, F_in)
+
+
+def _rebuild_cuda(spec: QincoSpec, dists, xh, p, A_eff: int, F_out: int, F_in: int):
+    """The CUDA path of :func:`select_rebuild`, in its span
+    ``kernels.select_rebuild`` with the plan's ids; counts the bytes its
+    column passes read again (``kernels.refetch_bytes``)."""
+    with tracing.span("kernels.select_rebuild") as sp:
         _require_cuda(xh)
         bf16 = bool(_is_bf16(spec))
         w = _chain_weights(spec, p)
@@ -794,6 +821,9 @@ def select_rebuild(
         stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
         plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr),
                             stages=stages, sms=_sm_count(xh.device))
+        refetch = rebuild_refetch_bytes(plan, F_out, D, De, Wc, in_proj=w.in_proj is not None)
+        sp.set(d_passes=plan.d_passes, refetch_bytes=refetch)
+        tracing.count("kernels.refetch_bytes", refetch)
         if not bf16:
             w = w._replace(**{f: blocked(getattr(w, f)) for f in (
                 "in_proj", "concat_w", "concat_w2", "ffn_up", "ffn_down", "out_proj")})
@@ -804,7 +834,7 @@ def select_rebuild(
                 [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
                  *_chain_ptrs(w), xhat, codes, parents],
                 [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, plan.tm, plan.per_item,
-                 plan.blocks, plan.smem, int(bf16), _res(spec)])
+                 plan.blocks, plan.smem, d_pass_width(D, plan.d_passes), int(bf16), _res(spec)])
         return xhat, codes, parents
 
 
@@ -840,10 +870,12 @@ def pad_rank(w: _ChainWeights) -> _ChainWeights:
 # tile's worth of vectors) that still leaves _SMS items, so that every SM
 # has work; the MLP tile is the largest whose shared memory fits, then R
 # (or V) shrinks until it fits.  bf16: the tensor-core kernels, the tile
-# one of _MMA_TILES.  f32: every f32 route runs on the register-tiled stage,
-# the tile one of _F32_TILES.  The byte counts are those of the .cu files'
-# layouts: SelectedLayout, SelectedF32Layout, FusedLayout, FusedF32Layout,
-# CandidateLayout, CandidateF32Layout, RebuildLayout and RebuildF32Layout.
+# one of _MMA_TILES; where nothing fits, B2 and B3 take D in column passes
+# (the fewest that fit, at a 64-pair tile).  f32: every f32 route runs on
+# the register-tiled stage, the tile one of _F32_TILES.  The byte counts
+# are those of the .cu files' layouts: SelectedLayout, SelectedF32Layout,
+# FusedLayout, FusedF32Layout, CandidateLayout, CandidateF32Layout,
+# RebuildLayout and RebuildF32Layout.
 # ---------------------------------------------------------------------------
 
 
@@ -855,6 +887,7 @@ class LaunchPlan(NamedTuple):
     blocks: int  # blocks launched
     mma: bool  # tensor-core kernel (bf16) or CUDA-core kernel (f32)
     cluster: int = 1  # blocks of a thread-block cluster that share the weight stream (B2)
+    d_passes: int = 1  # column passes over D (B2, B3): 1 holds D whole
 
 
 def _ld(width: int) -> int:
@@ -1002,22 +1035,25 @@ def wg_blocked(w: Optional[torch.Tensor], dtype: Optional[torch.dtype] = None
     return out.copy_(v).reshape(*lead, -1)
 
 
-def _selected_ring(R, tm, A, D, K, De, Dh, topa) -> int:
+def _selected_ring(R, tm, A, D, K, De, Dh, topa, kc: int = 0) -> int:
     """Offset of B2's weight ring in shared memory (SelectedLayout::ring):
-    the barriers, r, ccb, vals and the overlaid region."""
+    the barriers, r, ccb, vals and the overlaid region; ``kc`` < D: the
+    columns of D a pass holds (the D-passed plan)."""
     # r, ccb, vals, the two warpgroups' distance partials
     head = _WG_BAR_BYTES + _a16(4 * R * D) + _a16(4 * R * De) + _a16(4 * R * A) + 2 * 64 * 4
-    phase0 = 2 * 64 * D  # rnd(xh), the condition product's 64 rows
     substep = _a16(4 * R * D) + 4 * K * (R + 1) if topa else 0
-    tiles = 2 * tm * (D + De + Dh)  # cand, h, FFN hidden
+    if 0 < kc < D:  # a chunk of rnd(xh); h, and the FFN hidden or columns of cand
+        phase0, tiles = 2 * 64 * kc, 2 * tm * (De + max(Dh, kc, _WG_PASS))
+    else:  # rnd(xh), the condition product's 64 rows; cand, h, FFN hidden
+        phase0, tiles = 2 * 64 * D, 2 * tm * (D + De + Dh)
     return -(-(head + _a16(max(phase0, substep, tiles))) // 128) * 128
 
 
-def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa, extra: int = 0) -> int:
+def _selected_mma_smem(R, tm, A, D, K, De, Dh, topa, extra: int = 0, kc: int = 0) -> int:
     """Shared memory of B2's bf16 kernel (SelectedLayout): the ring with as
     many slots (4 to 16) as the limit leaves, and ``extra`` bytes at the
     end (selcat's f32 xh)."""
-    ring = _selected_ring(R, tm, A, D, K, De, Dh, topa)
+    ring = _selected_ring(R, tm, A, D, K, De, Dh, topa, kc)
     slots = max(_WG_RING[0], min(_WG_RING[1], (_SMEM_LIMIT - extra - ring) // _WG_SLAB_BYTES))
     return ring + slots * _WG_SLAB_BYTES + extra
 
@@ -1055,7 +1091,11 @@ def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bo
     slots (``stages``: the step MLP's products, the condition product
     included); raises when no tile fits a block's shared memory."""
     if bf16:
-        return _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms)
+        one = lambda: _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms)
+        if De == D:  # the column passes form the distance in out_proj's passes
+            return one()
+        return _or_passed(one, D, NF, lambda tm: _ROWS, sms, lambda R, kc: _selected_mma_smem(
+            R, _PASSED_TILE, A, D, K, De, Dh, topa, kc=kc), clustered=True)
     return _item_plan("selected_scores", NF, lambda tm: _ROWS,
                       lambda R, tm: _selected_f32_smem(R, tm, A, D, K, De, Dh, topa), sms,
                       bf16=False, stages=stages, widths=dict(D=D, De=De, Dh=Dh),
@@ -1073,6 +1113,21 @@ def selected_stream_bytes(plan: LaunchPlan, A: int, D: int, De: int, Dh: int, L:
             + (_wg_elems(De, D) if proj else 0))
     tiles = -(-(plan.per_item * A) // plan.tm)
     return 2 * plan.items * (head + tiles * tile) // plan.cluster
+
+
+def selected_refetch_bytes(plan: LaunchPlan, A: int, D: int, De: int, *, wfold: bool,
+                           res: bool) -> int:
+    """Bytes a bf16 B2 launch of ``plan`` reads again for its column passes
+    over D: each work item's f32 beam rows once more for every pass over the
+    condition product's output columns (De), and each tile's codewords once
+    more for every pass of the lean fetch's product after the first (with
+    wfold) and for the distance (with the codeword added, ``res``); 0 on the
+    one-pass plan."""
+    if plan.d_passes == 1:
+        return 0
+    head = 4 * _pass_count(De) * plan.per_item * D
+    tile = 2 * plan.tm * D * ((_pass_count(De) - 1 if wfold else 0) + res)
+    return plan.items * (head + -(-(plan.per_item * A) // plan.tm) * tile)
 
 
 def _chain_tiles(tm, D, De, Dh, Wc, h0: bool, low_rank: bool) -> int:
@@ -1134,9 +1189,12 @@ def candidate_plan(NF: int, A: int, D: int, De: int, Dh: int, Wc: int, *, bf16: 
                       dims=f"A={A}")
 
 
-def _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank) -> int:
-    cat = 2 * tm * max(_ld(De + D), _ld(Dh))  # [h0 | rnd(cond)], later the FFN hidden
-    h = 2 * tm * _ld(max(De, D))  # rnd(cand) for in_proj, later h
+def _rebuild_mma_smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank, kc: int = 0) -> int:
+    """Shared memory of B3's bf16 kernel (RebuildLayout); ``kc`` < D: the
+    columns of D a pass holds (the D-passed plan)."""
+    Dw = kc if 0 < kc < D else D
+    cat = 2 * tm * max(_ld(De + Dw), _ld(Dh))  # [h0 | rnd(cond)], later the FFN hidden
+    h = 2 * tm * _ld(max(De, Dw))  # rnd(cand) for in_proj, later h
     lr = 2 * tm * _ld(Wc) if low_rank else 0
     return (_STAGE_BYTES + _a16(4 * V * C) + 2 * _a16(4 * V * F_out) + cat + h + lr
             + _RING_BYTES)
@@ -1149,10 +1207,72 @@ def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, 
     rank with a low-rank factor; ``stages``: the step MLP's products);
     raises when no tile fits a block's shared memory."""
     smem = _rebuild_mma_smem if bf16 else _rebuild_f32_smem
-    return _item_plan("select_rebuild", N, lambda tm: max(1, tm // F_out),
-                      lambda V, tm: smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank), sms,
-                      bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
-                      dims=f"C={C}, F_out={F_out}")
+    most = lambda tm: max(1, tm // F_out)
+    one = lambda: _item_plan("select_rebuild", N, most,
+                             lambda V, tm: smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank), sms,
+                             bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
+                             dims=f"C={C}, F_out={F_out}")
+    if not bf16 or De % 32:  # the concat's chunks of cond start on its 32-row slabs
+        return one()
+    return _or_passed(one, D, N, most, sms, lambda V, kc: _rebuild_mma_smem(
+        V, _PASSED_TILE, C, F_out, D, De, Dh, Wc, low_rank, kc), clustered=False)
+
+
+def rebuild_refetch_bytes(plan: LaunchPlan, F_out: int, D: int, De: int, Wc: int, *,
+                          in_proj: bool) -> int:
+    """Bytes a B3 launch of ``plan`` reads again for its column passes over
+    D: each pass over the output columns of in_proj (De) and of the concat
+    layer (Wc) after the first reads the tile's f32 codewords or beam rows
+    again; 0 on the one-pass plan."""
+    if plan.d_passes == 1:
+        return 0
+    tile = 4 * plan.tm * D * ((_pass_count(De) - 1 if in_proj else 0) + _pass_count(Wc) - 1)
+    return plan.items * -(-(plan.per_item * F_out) // plan.tm) * tile
+
+
+# The D-passed plans of B2 and B3: a 64-pair tile, the chunks of D a whole
+# number of 64-column slabs.
+_PASSED_TILE = 64
+_D_ALIGN = 64
+
+
+def d_pass_width(D: int, passes: int) -> int:
+    """Columns of D a pass holds when D is taken in ``passes`` column
+    passes (the chunks as even as 64-column multiples allow): D itself for
+    one pass."""
+    return D if passes == 1 else -(-D // (_D_ALIGN * passes)) * _D_ALIGN
+
+
+def _d_pass_counts(D: int):
+    """The column-pass counts over D, fewest first, each with its own chunk
+    width."""
+    for passes in range(2, -(-D // _D_ALIGN) + 1):
+        if -(-D // d_pass_width(D, passes)) == passes:
+            yield passes
+
+
+def _or_passed(one, D: int, n: int, most, sms: int, smem_of, clustered: bool) -> LaunchPlan:
+    """``one()``, the one-pass plan, or where nothing fits it the fewest
+    column passes over D whose 64-pair tile fits, with ``most(tm)`` rows (or
+    vectors) a work item halved until ``smem_of(per, kc)`` fits; raises
+    ``one``'s error where none does."""
+    try:
+        return one()
+    except ValueError as err:
+        if "no tile fits" not in str(err):
+            raise
+        first = err
+    for passes in _d_pass_counts(D):
+        kc = d_pass_width(D, passes)
+        per = _per_item(n, most(_PASSED_TILE))
+        while per:
+            smem = smem_of(per, kc)
+            if smem <= _SMEM_LIMIT:
+                items = -(-n // per)
+                cluster, blocks = wg_grid(items, sms) if clustered else (1, min(items, sms))
+                return LaunchPlan(_PASSED_TILE, per, smem, items, blocks, True, cluster, passes)
+            per //= 2
+    raise first
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,11 @@ The spans, by layer (each name is fixed):
   each wrapper's CUDA path: its weight operands (the casts), its launch
   plan and the launch; ``kernels.selected_scores`` has the plan's ids
   ``tile_pairs`` (pairs a tile) and ``cluster`` (blocks that share each
-  weight slab).
+  weight slab); ``kernels.selected_scores`` and ``kernels.select_rebuild``
+  have ``d_passes`` (the plan's column passes over the data's width D: 1
+  where it holds D whole) and ``refetch_bytes`` (the bytes those passes
+  read again beyond the first read: ``kernels.selected_refetch_bytes``,
+  ``kernels.rebuild_refetch_bytes``; 0 on one pass).
 - ``train.train_step.make_train_step``: ``train.step`` (id ``step``, the
   step object's count), holding ``train.encode``, ``train.losses``,
   ``train.backward`` (``torch.autograd.grad``), ``train.stats`` (EMA and
@@ -56,12 +60,14 @@ Counters: ``io.h2d_bytes``, the bytes copied host to device by
 ``kernels.weight_stream_bytes``, the weight bytes each bf16
 ``selected_scores`` launch's plan streams from L2 (its tiles' and items'
 products, once a cluster: ``kernels.selected_stream_bytes``), while
-recording; and
+recording; ``kernels.refetch_bytes``, the sum of the two spans'
+``refetch_bytes``, while recording; and
 :data:`LAUNCHES`, the kernel launches by kernel (``ops.kernels``), always
 on and never cleared (its readers take differences).
 
 The benchmark (``port_bench/progspans.py``) reads ``encode.chunk``,
-``encode.wait``, ``kernels.*``, ``train.step`` and ``train.encode``;
+``encode.wait``, ``kernels.*`` (with their ``refetch_bytes``),
+``train.step`` and ``train.encode``;
 ``eval_time`` with ``profile_dir`` writes every span and counter beside
 its profiler trace (:func:`export`).
 """

@@ -6,7 +6,8 @@ with a low-rank factor, unpacked at K = 1024); the phase-breakdown
 kernels of B2 and B4 (ops/breakdown.py, each mode or cut, selcat and the
 streaming probes); the bf16 tensor-core
 kernels and the f32 kernels of all four with a ragged last work item, and
-the f32 kernels' repeatability.  Under bf16
+the f32 kernels' repeatability; B2 and B3 at D = 768, where their plans
+take D in column passes, against their plain versions and exact sums.  Under bf16
 every kernel is its tensor-core route.  Then the determinism of the
 segment sum, k-means and train steps on the card (same bits on every
 run), and the search pipeline's device ops (the coarse probe, the
@@ -35,7 +36,7 @@ import torch
 from qinco_torch.models.params import init_params
 from qinco_torch.models.spec import QincoSpec
 from qinco_torch.ops import breakdown, kernels
-from torch_exact import assert_near_exact, rebuild_exact
+from torch_exact import assert_near_exact, rebuild_exact, selected_exact
 
 # (widths, F_in, n_codes): a normal step, the IVF first step (F_in = 1,
 # n_codes = max(B, A)), at small widths, with in/out projections, and at
@@ -960,3 +961,66 @@ def test_sharded_coarse_topk_in_a_one_rank_group_equals_sqdist_topk(one_rank_gro
     """The sharded top-64 over a 2^16-row book (shard, gather and merge on
     the card) gives the plain top-k's ids."""
     assert one_rank_group["topk_equal"]
+
+
+# D = 768 (Contriever's width): B2 and B3 where their plans take D in
+# column passes (B2 at the qinco2-M and -L widths, B3 at all three; B2 at
+# qinco2-S still holds D whole, on 64-pair tiles), and one case at D = 256.
+WIDE = {
+    "S768": dict(D=768, K=256, L=2, de=128, dh=256, A=16, B=32),
+    "M768": dict(D=768, K=256, L=4, de=384, dh=384, A=16, B=32),
+    "L768": dict(D=768, K=256, L=16, de=384, dh=384, A=16, B=32),
+    "L256": dict(D=256, K=256, L=16, de=384, dh=384, A=16, B=32),
+}
+WIDE_PASSED = {"S768": (False, True), "M768": (True, True), "L768": (True, True),
+               "L256": (False, False)}  # (B2, B3) take column passes
+
+
+# (N, F_in, A) of B2's wide cases: a normal step, and the IVF first step,
+# where 1001 beam rows leave the last work item ragged
+WIDE_STEPS = {"step": (37, 32, 16), "ivf_first": (1001, 1, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", sorted(WIDE_STEPS))
+@pytest.mark.parametrize("route", ["topa", "vals"])
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_selected_scores_wide_rows_match_plain_and_exact(cuda, case, route, step):
+    """B2 at bf16, both routes: ids and scores as the plain version's (as
+    above), and the scores of its candidates no further from sums exact to
+    float64 than the plain version's, up to ``torch_exact``'s multiples."""
+    N, F_in, A = WIDE_STEPS[step]
+    spec, p = _step(WIDE[case], "bfloat16", seed=21, device=cuda)
+    x, xh = _inputs(spec, F_in, N=N, seed=22, device=cuda)
+    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), A,
+                                         route == "topa")
+    assert (plan.d_passes > 1) == WIDE_PASSED[case][0]
+    assert step == "step" or xh.shape[0] % plan.per_item
+    vals = _external_vals(spec, p, x, xh, F_in, A) if route == "vals" else None
+    got = kernels.selected_scores(spec, x, xh, p, A, vals=vals)
+    torch.cuda.synchronize()
+    _check_scores(got, kernels.selected_scores_plain(spec, x, xh, p, A, vals=vals), "bfloat16")
+    plain = kernels.selected_scores_plain(spec, x, xh, p, A, vals=got)  # the kernel's candidates
+    exact = selected_exact(spec, x, xh, p, kernels.unpack_ids(got))
+    assert_near_exact(_unpacked(got), _unpacked(plain), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_select_rebuild_wide_rows_match_plain_and_exact(cuda, case):
+    """B3 at bf16: codes and parents bit-equal to the plain version's, the
+    reconstructions no further from exact sums than the plain version's;
+    2 vectors an item, so the 301st is alone in the last."""
+    spec, p = _step(WIDE[case], "bfloat16", seed=23, device=cuda)
+    x, xh = _inputs(spec, 32, N=301, seed=24, device=cuda)
+    dists = kernels.selected_scores_plain(spec, x, xh, p, 16).reshape(301, 32 * 16)
+    dists[:, 16:32] = dists[:, :16]  # ties: beam 1 repeats beam 0's packed values
+    plan = kernels.rebuild_plan(301, 512, 32, spec.D, spec.De, spec.dh, spec.De, bf16=True,
+                                low_rank=False, stages=3 + 2 * spec.L, sms=kernels._sm_count(cuda))
+    assert (plan.d_passes > 1) == WIDE_PASSED[case][1] and 301 % plan.per_item
+    xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, 16, 32)
+    torch.cuda.synchronize()
+    xhat_p, codes_p, parents_p = kernels.select_rebuild_plain(spec, dists, xh, p, 16, 32)
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(parents, parents_p)
+    assert_near_exact(xhat, xhat_p, rebuild_exact(spec, p, xh, codes_p, parents_p))

@@ -545,3 +545,110 @@ def test_pad_fused_rank_round_trip(rank):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     if rank % 16 == 0:
         assert padded is w
+
+
+# ---------------------------------------------------------------------------
+# The data's width D: the reference's datasets run D = 96 (Deep1B), 128
+# (BigANN), 256 (FB-ssnpp) and 768 (Contriever).  B2 and B3 hold D whole
+# where the one-pass plan fits, and take it in column passes where it does
+# not (``LaunchPlan.d_passes``).
+# ---------------------------------------------------------------------------
+
+# (tm, rows or vectors an item, smem, items, blocks) of B2 and B3's plans at
+# D <= 256, as the one-pass planner gave them before the column passes.
+ONE_PASS = {
+    ("qinco2-S", 96, "step"): ((128, 32, 219904, 1024, 132), (128, 4, 138752, 256, 132)),
+    ("qinco2-S", 96, "ivf_first"): ((128, 4, 226048, 256, 132), (128, 4, 131072, 256, 132)),
+    ("qinco2-S", 128, "step"): ((128, 32, 232192, 1024, 132), (128, 4, 138752, 256, 132)),
+    ("qinco2-S", 128, "ivf_first"): ((128, 4, 218368, 256, 132), (128, 4, 131072, 256, 132)),
+    ("qinco2-S", 256, "step"): ((128, 1, 231808, 32768, 132), (128, 4, 204288, 256, 132)),
+    ("qinco2-S", 256, "ivf_first"): ((128, 1, 231808, 1024, 132), (128, 4, 196608, 256, 132)),
+    ("qinco2-M", 96, "step"): ((64, 16, 225024, 2048, 132), (64, 2, 144384, 512, 132)),
+    ("qinco2-M", 96, "ivf_first"): ((64, 4, 217856, 256, 132), (64, 2, 140544, 512, 132)),
+    ("qinco2-M", 128, "step"): ((64, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
+    ("qinco2-M", 128, "ivf_first"): ((64, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
+    ("qinco2-M", 256, "step"): ((64, 8, 218368, 4096, 132), (64, 2, 164864, 512, 132)),
+    ("qinco2-M", 256, "ivf_first"): ((64, 4, 224512, 256, 132), (64, 2, 161024, 512, 132)),
+    ("qinco2-L", 96, "step"): ((64, 16, 225024, 2048, 132), (64, 2, 144384, 512, 132)),
+    ("qinco2-L", 96, "ivf_first"): ((64, 4, 217856, 256, 132), (64, 2, 140544, 512, 132)),
+    ("qinco2-L", 128, "step"): ((64, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
+    ("qinco2-L", 128, "ivf_first"): ((64, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
+    ("qinco2-L", 256, "step"): ((64, 8, 218368, 4096, 132), (64, 2, 164864, 512, 132)),
+    ("qinco2-L", 256, "ivf_first"): ((64, 4, 224512, 256, 132), (64, 2, 161024, 512, 132)),
+}
+
+
+def _wide_spec(preset, D):
+    return spec_from_cfg(load_config([f"model_args={preset}", "encode_profile=parity"]), D=D)
+
+
+@pytest.mark.parametrize("key", sorted(ONE_PASS), ids=lambda k: f"{k[0]}-D{k[1]}-{k[2]}")
+def test_plans_up_to_D256_hold_D_whole(key):
+    """At D = 96, 128 and 256 both plans are the one-pass plans they were,
+    d_passes 1 (B2 in clusters of 2, B3 none)."""
+    preset, D, step = key
+    spec = _wide_spec(preset, D)
+    F_in, A = STEPS[step]
+    b2, b3 = ONE_PASS[key]
+    assert _selected_plan(spec, F_in, A) == kernels.LaunchPlan(*b2, True, 2, 1)
+    assert _rebuild_plan(spec, F_in, A) == kernels.LaunchPlan(*b3, True, 1, 1)
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_plans_at_D768_take_column_passes(preset, step):
+    """At D = 768 no one-pass plan of B3 fits at any preset, nor of B2 at
+    qinco2-M and -L: they take D in column passes, on a 64-pair tile, in
+    at most a block's shared memory, with every SM a work item.  B2 at
+    qinco2-S still fits D whole (64-pair tiles of 4 beam rows an item)."""
+    spec = _wide_spec(preset, 768)
+    F_in, A = STEPS[step]
+    sel = _selected_plan(spec, F_in, A)
+    _check_common(sel, N * F_in)
+    if preset == "qinco2-S":
+        assert (sel.tm, sel.per_item, sel.d_passes) == (64, 4, 1)
+    else:
+        assert (sel.tm, sel.d_passes, sel.cluster) == (64, 2, 2)
+        ring = kernels._selected_ring(sel.per_item, 64, A, 768, spec.K, spec.De, spec.dh, True,
+                                      kc=kernels.d_pass_width(768, sel.d_passes))
+        assert 4 <= (sel.smem - ring) // 16384 <= 16 and (sel.smem - ring) % 16384 == 0
+    reb = _rebuild_plan(spec, F_in, A)
+    _check_common(reb, N)
+    assert (reb.tm, reb.d_passes) == (64, 2)
+    assert kernels.d_pass_width(768, reb.d_passes) == 384
+
+
+def test_refetch_bytes_at_qinco2_L_D768():
+    """The bytes the column passes read again, counted by hand at qinco2-L,
+    D = 768, a normal step: De = 384 is 3 passes of 128 output columns.
+
+    B2 (R = 8 rows an item, 2 tiles of 64 pairs an item, 4096 items): per
+    item the f32 beam rows once for each of the condition product's 3
+    passes, 3 x 8 x 768 x 4 B; per tile the bf16 codewords for the lean
+    fetch's 2 passes after the first and for the distance, 3 x 64 x 768 x 2
+    B.  B3 (2 vectors an item of 32 beams: one 64-pair tile, 512 items):
+    per tile the f32 codewords (in_proj) and parent rows (the concat
+    layer) for 2 passes each after the first, 4 x 64 x 768 x 4 B."""
+    spec = _wide_spec("qinco2-L", 768)
+    sel = _selected_plan(spec, 32, 16)
+    assert (sel.per_item, sel.items) == (8, 4096)
+    got = kernels.selected_refetch_bytes(sel, 16, 768, 384, wfold=True, res=True)
+    assert got == 4096 * (3 * 8 * 768 * 4 + 2 * (3 * 64 * 768 * 2))
+    reb = _rebuild_plan(spec, 32, 16)
+    assert (reb.per_item, reb.items) == (2, 512)
+    assert kernels.rebuild_refetch_bytes(reb, 32, 768, 384, 384, in_proj=True) == (
+        512 * 4 * 64 * 768 * 4)
+    one = _selected_plan(_wide_spec("qinco2-L", 128), 32, 16)
+    assert kernels.selected_refetch_bytes(one, 16, 128, 384, wfold=True, res=True) == 0
+
+
+@pytest.mark.parametrize("widths", [dict(De=2048, Dh=2048), dict(De=1024, Dh=4096)],
+                         ids=["De=Dh=2048", "Dh=4096"])
+def test_wide_plans_raise_where_no_pass_fits(widths):
+    """At D = 768 the column passes do not rescue MLP widths whose h and
+    hidden alone outgrow a block: the plans raise as at D = 128."""
+    De, Dh = widths["De"], widths["Dh"]
+    with pytest.raises(ValueError, match="no tile fits"):
+        kernels.selected_plan(N * 32, 16, 768, 256, De, Dh, bf16=True, topa=True, stages=6)
+    with pytest.raises(ValueError, match="no tile fits"):
+        kernels.rebuild_plan(N, 512, 32, 768, De, Dh, De, bf16=True, low_rank=False, stages=5)

@@ -87,6 +87,41 @@ def test_a_span_takes_ids_found_inside_it():
     assert len(tracing.spans()) == 1
 
 
+@pytest.mark.parametrize("D", [128, 768])
+def test_kernel_spans_carry_the_column_passes(monkeypatch, D):
+    """The CUDA paths of B2 and B3 (their plans and spans, the launch left
+    out) on CPU tensors at qinco2-L's widths: each span carries the plan's
+    ``d_passes`` and ``refetch_bytes`` (2 passes at D = 768, where nothing
+    is read again at D = 128), and the counter ``kernels.refetch_bytes``
+    sums them over the launches."""
+    monkeypatch.setattr(kernels, "_require_cuda", lambda t: None)
+    monkeypatch.setattr(kernels, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(kernels, "_launch", lambda *a, **kw: None)
+    spec = QincoSpec(D=D, K=256, M=2, L=16, de=384, dh=384, A=16, B=32, pallas=True, fast=True,
+                     compute_dtype="bfloat16")
+    p = init_params(spec, torch.Generator().manual_seed(0), device="cpu").step(0)
+    N = 8
+    x, xh = torch.zeros((N, D)), torch.zeros((N * 32, D))
+    dists = torch.zeros((N, 32 * 16))
+    with tracing.recording():
+        for _ in range(2):
+            kernels._selected_cuda(spec, x, xh, p, 16, 32, None)
+        kernels._rebuild_cuda(spec, dists, xh, p, 16, 32, 32)
+    sel = [s for s in tracing.spans() if s.name == "kernels.selected_scores"]
+    reb = [s for s in tracing.spans() if s.name == "kernels.select_rebuild"]
+    assert len(sel) == 2 and len(reb) == 1
+    wide = D == 768
+    for s in sel + reb:
+        assert s.ids["d_passes"] == (2 if wide else 1)
+        assert (s.ids["refetch_bytes"] > 0) == wide
+    plan = kernels.selected_plan(N * 32, 16, D, 256, 384, 384, bf16=True, topa=True, stages=35)
+    assert sel[0].ids["refetch_bytes"] == kernels.selected_refetch_bytes(
+        plan, 16, D, 384, wfold=True, res=True)
+    assert sel[0].ids["tile_pairs"] == plan.tm and sel[0].ids["cluster"] == plan.cluster
+    total = sum(s.ids["refetch_bytes"] for s in sel + reb)
+    assert tracing.counters().get("kernels.refetch_bytes") == total
+
+
 def test_cap_counts_dropped_spans(monkeypatch):
     monkeypatch.setattr(tracing, "CAP", 2)
     with tracing.recording():

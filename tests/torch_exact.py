@@ -74,3 +74,25 @@ def assert_near_exact(got, plain, exact):
         f"kernel - exact: max {e_got.max().item():.4g} (bound {max_bound.item():.4g}), "
         f"mean {e_got.mean().item():.3g} (bound {mean_bound.item():.3g}); plain - exact: "
         f"max {e_plain.max().item():.4g}, mean {e_plain.mean().item():.3g}")
+
+
+def selected_exact(spec, x, xh, p, ids):
+    """``kernels.selected_scores_plain`` with every product summed exactly
+    (float64), rounded at the same points, for the candidates ``ids (NF,
+    A)``: the unpacked distances ``(NF, A)``."""
+    rnd = kernels.rounder(spec)
+    w = kernels._selected_weights(spec, p)
+    F_in, D = xh.shape[0] // x.shape[0], xh.shape[1]
+    r = x.repeat_interleave(F_in, dim=0) - xh
+    tab = w.table.float()[ids.long()]
+    ccb = _mm(rnd(xh), w.w2.float()) + w.concat_b
+    h_cand = _mm(tab[..., :D], w.wfold.float()) if w.wfold is not None else tab[..., D:]
+    h = rnd(h_cand + ccb[:, None, :])
+    for l in range(spec.L):
+        up = rnd(torch.relu(_mm(h, w.ffn_up[l].float())))
+        h = rnd(h + rnd(_mm(up, w.ffn_down[l].float())))
+    out = _mm(h, w.out_proj.float()) if w.out_proj is not None else h
+    diff = r[:, None, :].double() - out.double()
+    if spec.res_codeword_coeff:
+        diff = diff - tab[..., :D].double()
+    return (diff * diff).sum(-1).float()
