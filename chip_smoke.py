@@ -34,7 +34,12 @@
    - at qinco2-L: selected scores with the in-kernel top-A (and
      select-rebuild on its output) and fused-substep scores, each at bf16
      and f32; selected scores with external vals (``pallas=true``);
-     candidate scores at K=1024, bf16 and f32.
+     candidate scores at K=1024, bf16 and f32;
+   - at qinco2-L and D = ``WIDE_D`` (768, Contriever's width), where B2's
+     and B3's plans take D in column passes (checked): selected scores
+     with the in-kernel top-A (and select-rebuild on its output) and with
+     external vals (``fused_topa=false``), each at a normal step and the
+     IVF first step.
    Between the qinco2-S checks and the qinco2-L ones, the breakdown phase
    (``breakdown_phase``): the phase-breakdown kernels of
    ``qinco_torch.ops.breakdown`` (B2's seven kernels at N=1024: its nine
@@ -62,7 +67,9 @@
    and with the IVF step 0 (codes agreeing with exact on >=
    ``DEEP_MIN_AGREE``), the speed profile (its MSE against exact printed,
    not bounded: ``deep_paths``), and the parity selection at f32
-   (``pallas=true fast_encode=true``, >= 0.99).  Each checks
+   (``pallas=true fast_encode=true``, >= 0.99); then at qinco2-L and
+   D = ``WIDE_D`` the parity profile without and with the IVF step 0
+   (``wide_paths``, as the deep paths).  Each checks
    the kernels' launch counts exactly (one launch of its scoring kernel
    and, with packed ids, of select-rebuild per MLP step and chunk, none of
    the others), encode xhat against decode(codes), and its MSE and codes
@@ -279,6 +286,13 @@ DEEP_REPS = 6
 # at the last, at 1.000x the exact MSE); the same selection at f32 (the
 # ``pallas=true fast_encode=true`` path) agrees on >= 0.99.
 DEEP_MIN_AGREE = 0.85
+# The width of the wide checks and paths (Contriever's), where B2 and B3 at
+# the qinco2-L widths take D in column passes.
+WIDE_D = 768
+# The wide paths' MSE bound against the exact profile: the parity decode's
+# own rounding at D = 768 (``wide_paths``), as tests/test_torch_encode_wide.py
+# bounds the parity profile there.
+WIDE_MSE_BOUND = 1.05
 # The qinco2-L train run's rows, held-out rows and rows an epoch (2 epochs
 # at batch TRAIN_BATCH: 16 optimizer steps).
 DEEP_TRAIN_ROWS, DEEP_TRAIN_VAL, DEEP_TRAIN_LOOP = 32768, 8192, 8192
@@ -598,13 +612,13 @@ def probe_work(xh, kind, rows, A):
     return NF * D, NF * D * xh.element_size() + -(-NF // rows) * 8 * D * 4
 
 
-def spec_of(preset, *extra, profile="parity"):
-    """The spec of a preset at D=128, with extra overrides and an encode
+def spec_of(preset, *extra, profile="parity", D=128):
+    """The spec of a preset at width D, with extra overrides and an encode
     profile (none for profile=None)."""
     overrides = [f"model_args={preset}", *extra]
     if profile:
         overrides.append(f"encode_profile={profile}")
-    return spec_from_cfg(load_config(overrides), D=128)
+    return spec_from_cfg(load_config(overrides), D=D)
 
 
 def random_model(spec, seed: int, device):
@@ -1108,6 +1122,31 @@ def deep_kernel_checks(N: int, seed: int, device) -> None:
                         spec.A, **kw)
 
 
+def wide_kernel_checks(N: int, seed: int, device) -> None:
+    """B2 and B3 at the qinco2-L widths and D = ``WIDE_D``, each against its
+    plain version: selected scores with the in-kernel top-A (select-rebuild
+    on its output) and with external vals (``fused_topa=false``), at a
+    normal step and at the IVF first step, after checking that each plan
+    takes D in column passes.  ``DEEP_REPS`` timed calls each."""
+    topa = spec_of("qinco2-L", D=WIDE_D)
+    vals = spec_of("qinco2-L", "fused_topa=false", D=WIDE_D)
+    for F_in, A, step in ((topa.B, topa.A, ""), (1, max(topa.B, topa.A), " IVF first step")):
+        for spec, external in ((topa, False), (vals, True)):
+            p, _, xh = step_inputs(spec, N, F_in, seed, device)
+            plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), A,
+                                                 not external)
+            label = f"qinco2-L D={WIDE_D}{step}"
+            check(plan.d_passes > 1, f"selected_scores {label}: one pass over D ({plan})")
+            if not external:
+                F_out = min(spec.B, F_in * A)
+                reb = kernels.rebuild_plan(N, F_in * A, F_out, spec.D, spec.de, spec.dh, spec.de,
+                                           bf16=True, low_rank=False, stages=3 + 2 * spec.L,
+                                           sms=kernels._sm_count(device))
+                check(reb.d_passes > 1, f"select_rebuild {label}: one pass over D ({reb})")
+            check_selected(label + (" (external vals)" if external else ""), spec, N, F_in, A,
+                           seed, device, external=external, reps=DEEP_REPS)
+
+
 def load_script(name: str):
     """A script of ``scripts/`` as a module."""
     spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
@@ -1428,6 +1467,25 @@ def deep_paths() -> list:
         ("qinco2-L fast_encode=true pallas=true (f32)",
          spec_of("qinco2-L", "pallas=true", "fast_encode=true", profile=None), "selected_scores",
          NOISE, 1.01, 0.99),
+    ]
+
+
+def wide_paths() -> list:
+    """The qinco2-L paths at D = ``WIDE_D``, as ``deep_paths``: parity
+    without and with the 2^20 IVF step 0 (the ``qinco2-L-contriever``
+    benchmark cell's), B2 and B3 on their column passes.
+
+    Their MSE bound is ``WIDE_MSE_BOUND``, not 1.01: ``run_path`` decodes
+    the parity codes with the parity profile, whose bf16 rounding through
+    the 16 blocks moves a decode by about 1% of its norm, and at D = 768
+    that alone adds about 2% to the MSE (1.022x exact on the first chunk
+    at seed 0, where the same codes decoded in f32 read 1.007x, and the
+    plain versions' parity codes 1.005x)."""
+    return [
+        (f"qinco2-L D={WIDE_D}", spec_of("qinco2-L", D=WIDE_D), "selected_scores", NOISE,
+         WIDE_MSE_BOUND, DEEP_MIN_AGREE),
+        (f"qinco2-L D={WIDE_D} IVF 2^20", spec_of("qinco2-L", "ivf_in_use=true", D=WIDE_D),
+         "selected_scores", NOISE, WIDE_MSE_BOUND, DEEP_MIN_AGREE),
     ]
 
 
@@ -2370,6 +2428,7 @@ def main() -> None:
                    s.A, seed, device)
     bd = breakdown_phase(seed, device)
     deep_kernel_checks(N, seed, device)
+    wide_kernel_checks(N, seed, device)
 
     # (label, spec, scoring kernel, data noise, MSE bound and least code
     # agreement vs exact)
@@ -2392,7 +2451,7 @@ def main() -> None:
     launches = drive_paths(paths, args.n, N, seed, device)
     for k, v in bd["launches"].items():
         launches[k] += v
-    for k, v in drive_paths(deep_paths(), args.n, N, seed, device).items():
+    for k, v in drive_paths(deep_paths() + wide_paths(), args.n, N, seed, device).items():
         launches[k] += v
 
     # the train phase's directory lives on to the legacy phase, which

@@ -448,6 +448,27 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
       wg::fence_proxy_async();
       f32::sync();  // cand and h are in
 
+      // PASSED: the pairs' codewords, columns c0 .. c0 + n - 1 (past D: zeros),
+      // into the hidden's place (TM, n); 8 bf16 a thread, 4 loads in flight
+      const auto gather_cand = [&](int c0, int n) {
+        const int n8 = n / 8, w8 = min(n, D - c0) / 8;
+        for (int e0 = tid; e0 < TM * n8; e0 += 4 * kThreads) {
+          uint4 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+            v[u] = make_uint4(0, 0, 0, 0);
+            if (t < rows && j < w8)
+              v[u] = *reinterpret_cast<const uint4*>(
+                  table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + c0 + 8 * j);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
+            if (j < n8) *reinterpret_cast<uint4*>(hid_b + act_off(t, 8 * j, n)) = v[u];
+          }
+        }
+      };
       const auto cand2 = [&](int t, int c) {  // pair t's codeword, columns c, c + 1
         if constexpr (PASSED)  // the columns of out_proj's pass, staged in the hidden's place
           return ld_bf2(reinterpret_cast<const bf16*>(hid_b + act_off(t, c % wg::kPass, wg::kPass)));
@@ -541,25 +562,8 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
           }
         };
         if constexpr (PASSED) {  // cand a chunk of kc columns at a time, in the hidden's place
-          wg::product_chunked<N>(ring, base + lay.big, g.kc, D, De, col, on, h_out, [&](int, int c0) {
-            const int n8 = g.kc / 8, w8 = min(g.kc, D - c0) / 8;
-            for (int e0 = tid; e0 < TM * n8; e0 += 4 * kThreads) {
-              uint4 v[4];
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
-                v[u] = make_uint4(0, 0, 0, 0);
-                if (t < rows && j < w8)
-                  v[u] = *reinterpret_cast<const uint4*>(
-                      table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + c0 + 8 * j);
-              }
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
-                if (j < n8) *reinterpret_cast<uint4*>(hid_b + act_off(t, 8 * j, g.kc)) = v[u];
-              }
-            }
-          });
+          wg::product_chunked<N>(ring, base + lay.big, g.kc, D, De, col, on, h_out,
+                                 [&](int, int c0) { gather_cand(c0, g.kc); });
         } else {
           wg::product<N>(ring, a_cand, D, D, De, col, on, h_out);
         }
@@ -616,25 +620,8 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
         score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); });
       };
       if constexpr (PASSED) {  // before each pass, its columns of the pairs' codewords
-        wg::product_chunked<N>(ring, a_h, De, De, D, col, on, proj_out, [&](int c, int) {
-          const int n8 = wg::kPass / 8, w8 = min(wg::kPass, D - c) / 8;
-          for (int e0 = tid; e0 < TM * n8; e0 += 4 * kThreads) {
-            uint4 v[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
-              v[u] = make_uint4(0, 0, 0, 0);
-              if (t < rows && j < w8)
-                v[u] = *reinterpret_cast<const uint4*>(
-                    table + (size_t)unpack_id(val_s[pair(t, p0)]) * Wt + c + 8 * j);
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int e = e0 + u * kThreads, t = e % TM, j = e / TM;
-              if (j < n8) *reinterpret_cast<uint4*>(hid_b + act_off(t, 8 * j, wg::kPass)) = v[u];
-            }
-          }
-        });
+        wg::product_chunked<N>(ring, a_h, De, De, D, col, on, proj_out,
+                               [&](int c, int) { gather_cand(c, wg::kPass); });
       } else if (proj) {
         wg::product<N>(ring, a_h, De, De, D, col, on, proj_out);
       }

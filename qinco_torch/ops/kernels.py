@@ -918,16 +918,15 @@ def _check_mma(stages: int, **dims: int) -> None:
                          f"stream at most {_MMA_STAGES}")
 
 
-def _item_plan(name: str, n: int, most, smem_of, sms: int, *, bf16: bool, stages: int,
-               widths: dict, dims: str) -> LaunchPlan:
-    """The plan of a persistent kernel for ``n`` rows (or vectors), on the
-    tensor cores (bf16: ``widths`` multiples of 16, the tiles _MMA_TILES)
-    or on the f32 stage (multiples of 4, _F32_TILES): for each tile,
-    largest first, ``most(tm)`` rows a work item (fewer when that leaves
-    fewer than _SMS items), halved until ``smem_of(rows, tm)`` fits; raises
-    when a width or the count of products does not suit the route, or when
-    nothing fits.  One block per SM, or per item when there are fewer."""
-    (_check_mma if bf16 else _check_f32)(stages, **widths)
+def _no_fit(name: str, dims: str) -> ValueError:
+    return ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory ({dims})")
+
+
+def _item_fit(n: int, most, smem_of, sms: int, bf16: bool) -> Optional[LaunchPlan]:
+    """For each tile of the route, largest first, ``most(tm)`` rows a work
+    item (fewer when that leaves fewer than _SMS items), halved until
+    ``smem_of(rows, tm)`` fits; None where nothing fits.  One block per SM,
+    or per item when there are fewer."""
     for tm in _MMA_TILES if bf16 else _F32_TILES:
         per = _per_item(n, most(tm))
         while per:
@@ -936,8 +935,21 @@ def _item_plan(name: str, n: int, most, smem_of, sms: int, *, bf16: bool, stages
                 items = -(-n // per)
                 return LaunchPlan(tm, per, smem, items, min(items, sms), bf16)
             per //= 2
-    dims = ", ".join([f"{k}={v}" for k, v in widths.items()] + [dims])
-    raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory ({dims})")
+    return None
+
+
+def _item_plan(name: str, n: int, most, smem_of, sms: int, *, bf16: bool, stages: int,
+               widths: dict, dims: str) -> LaunchPlan:
+    """The plan of a persistent kernel for ``n`` rows (or vectors), on the
+    tensor cores (bf16: ``widths`` multiples of 16, the tiles _MMA_TILES)
+    or on the f32 stage (multiples of 4, _F32_TILES), by :func:`_item_fit`;
+    raises when a width or the count of products does not suit the route,
+    or when nothing fits."""
+    (_check_mma if bf16 else _check_f32)(stages, **widths)
+    plan = _item_fit(n, most, smem_of, sms, bf16)
+    if plan is None:
+        raise _no_fit(name, ", ".join([f"{k}={v}" for k, v in widths.items()] + [dims]))
+    return plan
 
 
 def _f32_ld(width: int) -> int:
@@ -1066,12 +1078,11 @@ def wg_grid(items: int, sms: int) -> tuple[int, int]:
     return cluster, min(-(-items // cluster) * cluster, sms // cluster * cluster)
 
 
-def _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms, row_bytes: int = 0,
-                      name: str = "selected_scores") -> LaunchPlan:
-    """B2's bf16 plan: the largest tile whose rows a work item (the most
-    that leave _SMS items, halved until it fits) fit with the ring's least
-    slots (and ``row_bytes`` more a row), on the grid of :func:`wg_grid`."""
-    _check_mma(stages, D=D, De=De, Dh=Dh)
+def _selected_wg_fit(NF, A, D, K, De, Dh, topa, sms, row_bytes: int = 0) -> Optional[LaunchPlan]:
+    """B2's bf16 one-pass plan: the largest tile whose rows a work item
+    (the most that leave _SMS items, halved until it fits) fit with the
+    ring's least slots (and ``row_bytes`` more a row), on the grid of
+    :func:`wg_grid`; None where nothing fits."""
     for tm in _WG_TILES:
         per = _per_item(NF, _ROWS)
         while per:
@@ -1081,21 +1092,35 @@ def _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms, row_bytes: int = 0
                 cluster, blocks = wg_grid(items, sms)
                 return LaunchPlan(tm, per, smem, items, blocks, True, cluster)
             per //= 2
-    raise ValueError(f"{name}: no tile fits {_SMEM_LIMIT} B of shared memory "
-                     f"(D={D}, De={De}, Dh={Dh}, K={K}, A={A})")
+    return None
+
+
+def _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms, row_bytes: int = 0,
+                      name: str = "selected_scores") -> LaunchPlan:
+    """:func:`_selected_wg_fit`, raising where nothing fits."""
+    _check_mma(stages, D=D, De=De, Dh=Dh)
+    plan = _selected_wg_fit(NF, A, D, K, De, Dh, topa, sms, row_bytes)
+    if plan is None:
+        raise _no_fit(name, f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}")
+    return plan
 
 
 def selected_plan(NF: int, A: int, D: int, K: int, De: int, Dh: int, *, bf16: bool, topa: bool,
                   stages: int, sms: int = _SMS) -> LaunchPlan:
     """Launch plan of the selected-scores kernel for NF beam rows of A
     slots (``stages``: the step MLP's products, the condition product
-    included); raises when no tile fits a block's shared memory."""
+    included): under bf16 the one-pass plan, or where nothing fits it the
+    column passes over D; raises when no tile fits a block's shared
+    memory."""
     if bf16:
-        one = lambda: _selected_wg_plan(NF, A, D, K, De, Dh, topa, stages, sms)
-        if De == D:  # the column passes form the distance in out_proj's passes
-            return one()
-        return _or_passed(one, D, NF, lambda tm: _ROWS, sms, lambda R, kc: _selected_mma_smem(
-            R, _PASSED_TILE, A, D, K, De, Dh, topa, kc=kc), clustered=True)
+        _check_mma(stages, D=D, De=De, Dh=Dh)
+        plan = _selected_wg_fit(NF, A, D, K, De, Dh, topa, sms)
+        if plan is None and De != D:  # the column passes form the distance in out_proj's passes
+            plan = _passed_fit(D, NF, lambda tm: _ROWS, sms, lambda R, kc: _selected_mma_smem(
+                R, _PASSED_TILE, A, D, K, De, Dh, topa, kc=kc), clustered=True)
+        if plan is None:
+            raise _no_fit("selected_scores", f"D={D}, De={De}, Dh={Dh}, K={K}, A={A}")
+        return plan
     return _item_plan("selected_scores", NF, lambda tm: _ROWS,
                       lambda R, tm: _selected_f32_smem(R, tm, A, D, K, De, Dh, topa), sms,
                       bf16=False, stages=stages, widths=dict(D=D, De=De, Dh=Dh),
@@ -1205,17 +1230,22 @@ def rebuild_plan(N: int, C: int, F_out: int, D: int, De: int, Dh: int, Wc: int, 
     """Launch plan of the select-rebuild kernel for N vectors of C packed
     distances, F_out beams out (Wc: the concat layer's width, the padded
     rank with a low-rank factor; ``stages``: the step MLP's products);
-    raises when no tile fits a block's shared memory."""
+    raises when no tile fits a block's shared memory.  Under bf16, where
+    nothing fits the one-pass plan, the column passes over D."""
+    widths = dict(D=D, De=De, Dh=Dh, Wc=Wc)
+    (_check_mma if bf16 else _check_f32)(stages, **widths)
     smem = _rebuild_mma_smem if bf16 else _rebuild_f32_smem
     most = lambda tm: max(1, tm // F_out)
-    one = lambda: _item_plan("select_rebuild", N, most,
-                             lambda V, tm: smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank), sms,
-                             bf16=bf16, stages=stages, widths=dict(D=D, De=De, Dh=Dh, Wc=Wc),
-                             dims=f"C={C}, F_out={F_out}")
-    if not bf16 or De % 32:  # the concat's chunks of cond start on its 32-row slabs
-        return one()
-    return _or_passed(one, D, N, most, sms, lambda V, kc: _rebuild_mma_smem(
-        V, _PASSED_TILE, C, F_out, D, De, Dh, Wc, low_rank, kc), clustered=False)
+    plan = _item_fit(N, most, lambda V, tm: smem(V, tm, C, F_out, D, De, Dh, Wc, low_rank), sms,
+                     bf16)
+    # The concat's chunks of cond start on its 32-row slabs.
+    if plan is None and bf16 and De % 32 == 0:
+        plan = _passed_fit(D, N, most, sms, lambda V, kc: _rebuild_mma_smem(
+            V, _PASSED_TILE, C, F_out, D, De, Dh, Wc, low_rank, kc), clustered=False)
+    if plan is None:
+        raise _no_fit("select_rebuild", ", ".join(
+            [f"{k}={v}" for k, v in widths.items()] + [f"C={C}, F_out={F_out}"]))
+    return plan
 
 
 def rebuild_refetch_bytes(plan: LaunchPlan, F_out: int, D: int, De: int, Wc: int, *,
@@ -1251,17 +1281,10 @@ def _d_pass_counts(D: int):
             yield passes
 
 
-def _or_passed(one, D: int, n: int, most, sms: int, smem_of, clustered: bool) -> LaunchPlan:
-    """``one()``, the one-pass plan, or where nothing fits it the fewest
-    column passes over D whose 64-pair tile fits, with ``most(tm)`` rows (or
-    vectors) a work item halved until ``smem_of(per, kc)`` fits; raises
-    ``one``'s error where none does."""
-    try:
-        return one()
-    except ValueError as err:
-        if "no tile fits" not in str(err):
-            raise
-        first = err
+def _passed_fit(D: int, n: int, most, sms: int, smem_of, clustered: bool) -> Optional[LaunchPlan]:
+    """The fewest column passes over D whose 64-pair tile fits, with
+    ``most(tm)`` rows (or vectors) a work item halved until
+    ``smem_of(per, kc)`` fits; None where none does."""
     for passes in _d_pass_counts(D):
         kc = d_pass_width(D, passes)
         per = _per_item(n, most(_PASSED_TILE))
@@ -1272,7 +1295,7 @@ def _or_passed(one, D: int, n: int, most, sms: int, smem_of, clustered: bool) ->
                 cluster, blocks = wg_grid(items, sms) if clustered else (1, min(items, sms))
                 return LaunchPlan(_PASSED_TILE, per, smem, items, blocks, True, cluster, passes)
             per //= 2
-    raise first
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,8 @@ The spans, by layer (each name is fixed):
   weight slab); ``kernels.selected_scores`` and ``kernels.select_rebuild``
   have ``d_passes`` (the plan's column passes over the data's width D: 1
   where it holds D whole) and ``refetch_bytes`` (the bytes those passes
-  read again beyond the first read: ``kernels.selected_refetch_bytes``,
+  read again beyond the first read, worked out from the plan and not
+  observed: ``kernels.selected_refetch_bytes``,
   ``kernels.rebuild_refetch_bytes``; 0 on one pass).
 - ``train.train_step.make_train_step``: ``train.step`` (id ``step``, the
   step object's count), holding ``train.encode``, ``train.losses``,

@@ -26,6 +26,9 @@ SPECS = {
     "ivf_no_substep": dict(ivf_K=128, A=0, B=4),
     "projections": dict(de=48),
     "fast_plain": dict(fast=True),  # bf16-rounded candidate fetch, plain route
+    # Contriever's width (D = 768) at the qinco2-L MLP widths, one FFN
+    # block: deeper, the decodes grow past the 1e-5 atol of the decode check
+    "contriever_L": dict(D=768, K=256, M=2, L=1, de=384, dh=384, A=8, B=4),
 }
 
 
