@@ -39,7 +39,13 @@
      and B3's plans take D in column passes (checked): selected scores
      with the in-kernel top-A (and select-rebuild on its output) and with
      external vals (``fused_topa=false``), each at a normal step and the
-     IVF first step.
+     IVF first step;
+   - the IVF step 0's kernel (``chunked_argmin``, csrc/nearest.cu) at the
+     encode's chunk of 1024 rows on a 2^20-row book, D = 128 and
+     ``WIDE_D``, against the plain loop it replaces (the cuBLAS product
+     and row min), its launches (the kernel and the merge), the memory a
+     call allocates (no distance tile), its ms beside the plain loop's
+     (``ivf_kernel_checks``; one ``{"ivf_step": ...}`` line).
    Between the qinco2-S checks and the qinco2-L ones, the breakdown phase
    (``breakdown_phase``): the phase-breakdown kernels of
    ``qinco_torch.ops.breakdown`` (B2's seven kernels at N=1024: its nine
@@ -246,7 +252,7 @@ from qinco_torch.models import qinco as qinco_model
 from qinco_torch.models.qinco import decode, decode_raw, encode, encode_chunked
 from qinco_torch.models.spec import spec_from_cfg
 from qinco_torch.ops import breakdown, kernels
-from qinco_torch.ops.distances import sqdist_topk
+from qinco_torch.ops.distances import chunked_argmin, chunked_argmin_plain, sqdist_topk
 from qinco_torch.ops.kmeans import DIST_BUDGET_ELEMS, accumulate_pass
 from qinco_torch.parallel import distributed as pdist
 from qinco_torch.parallel import mesh as pmesh
@@ -370,6 +376,11 @@ BREAKDOWN_SOURCES = {
 B4_ALIASES = {"perbin": (f"{_KV}:371", f"{_KV}:275"), "sgfetch": (f"{_KV}:500", f"{_KV}:388")}
 # Breakdown phase: calls timed back to back per variant in the entry scripts.
 BREAKDOWN_ITERS = 20
+# The IVF step's kernel: its tolerance against the plain loop (of the size
+# of a distance's terms, tests/test_torch_nearest.py) and its design.
+IVF_RTOL = 1e-5
+IVF_DESIGN = ("cuda cores f32 (x block resident or streamed, book slices through shared memory, "
+              "8 x 8 register tiles, running first minimum, splits merged in order)")
 
 
 def emit(obj) -> None:
@@ -828,6 +839,23 @@ def device_breakdown(fn) -> dict:
                 top=[[name[:80], ms, n] for name, (ms, n) in top])
 
 
+def beam_launches(launches: dict) -> dict:
+    """``launches`` without the IVF step's kernels, which k-means, the RQ
+    bootstrap and OPQ launch as well (``ivf_launches`` counts them on the
+    encodes)."""
+    return {k: v for k, v in launches.items() if k not in kernels.NEAREST_KERNELS}
+
+
+def ivf_launches(spec, chunks: int, batch: int, device) -> dict:
+    """The IVF step's launches in ``chunks`` encode chunks of ``batch``
+    rows: its kernel once a chunk, and the merge where the plan splits the
+    book; none without the IVF step."""
+    if not spec.ivf_in_use:
+        return {k: 0 for k in kernels.NEAREST_KERNELS}
+    merge = kernels.nearest_plan(batch, spec.ivf_K, kernels._sm_count(device)) > 1
+    return {"nearest": chunks, "nearest_merge": chunks * merge}
+
+
 def run_path(label, spec, params, x_raw, batch, device, scorer, noise, mse_bound, min_agree):
     """A main path: encode_chunked then decode, with the launch counts read
     around it; then its checks against decode and the exact profile (on
@@ -858,6 +886,7 @@ def run_path(label, spec, params, x_raw, batch, device, scorer, noise, mse_bound
     per_step = spec.n_mlp_steps * -(-n // batch)
     used = {scorer} | ({"select_rebuild"} if spec.K <= 256 else set())
     want = {k: per_step if k in used else 0 for k in kernels.LAUNCHES}
+    want.update(ivf_launches(spec, -(-n // batch), batch, device))
     check(launches == want, f"{label}: launches {launches}, expected {want}")
     check(codes.shape == (spec.M_ivf, n) and codes.min() >= 0, f"{label}: bad codes")
     check(bool(torch.isfinite(xdec).all()), f"{label}: decode is not finite")
@@ -984,10 +1013,12 @@ def train_log(log: str) -> dict:
 def check_train_run(label, spec, run, launches, steps, val_rows) -> None:
     """A parity ``task=train`` run: its step count, one selected-scores and
     one select-rebuild launch per MLP step of every step and validation
-    batch (none of the other kernels), finite losses, a falling
-    validation MSE."""
+    batch (none of the other beam-step kernels; the RQ bootstrap's k-means
+    launches the IVF step's, which are not counted here), finite losses, a
+    falling validation MSE."""
     val = run["val"]
     per_batch = spec.n_mlp_steps * (run["steps"] + len(val) * -(-val_rows // TRAIN_BATCH))
+    launches = beam_launches(launches)
     want = {k: per_batch if k in ("selected_scores", "select_rebuild") else 0 for k in launches}
     check(run["steps"] == steps, f"{label}: {run['steps']} steps, expected {steps}")
     check(launches == want, f"{label}: launches {launches}, expected {want}")
@@ -1145,6 +1176,60 @@ def wide_kernel_checks(N: int, seed: int, device) -> None:
                 check(reb.d_passes > 1, f"select_rebuild {label}: one pass over D ({reb})")
             check_selected(label + (" (external vals)" if external else ""), spec, N, F_in, A,
                            seed, device, external=external, reps=DEEP_REPS)
+
+
+def ivf_kernel_checks(seed: int, device) -> dict:
+    """The IVF step 0's kernel (``chunked_argmin`` on the card, csrc/nearest.cu)
+    against the plain loop it replaces (``chunked_argmin_plain``: a cuBLAS
+    product and a row min a 65,536-row slice) at the encode's chunk,
+    N = 1024 rows on a 2^20-row book, at D = 128 (qinco2-S) and
+    D = ``WIDE_D``, with the tolerances of ``tests/test_torch_nearest.py``:
+    codes equal but at near ties, distances within ``IVF_RTOL`` of the size
+    of their terms.  Checks its launches (the kernel and the merge) and
+    that the call allocates no (N, 65,536) distance tile; times a call and
+    the plain loop (CUDA events) against the bound by f32 operations.  One
+    ``{"ivf_step": ...}`` line; returns the D = 128 record."""
+    N, K = 1024, 1 << 20
+    res = []
+    for D in (128, WIDE_D):
+        g = torch.Generator(device=device).manual_seed(seed + D)
+        x = torch.randn((N, D), generator=g, device=device)
+        book = torch.randn((K, D), generator=g, device=device)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: kernels.LAUNCHES[k] for k in kernels.NEAREST_KERNELS}
+        idx, dist = chunked_argmin(x, book)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.max_memory_allocated() - base
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.NEAREST_KERNELS}
+        label = f"IVF step N={N} K=2^20 D={D}"
+        check(launched == {"nearest": 1, "nearest_merge": 1}, f"{label}: launches {launched}")
+        check(alloc < 4 * N * 65536 // 64, f"{label}: the call allocated {alloc} bytes")
+        want, _ = chunked_argmin_plain(x, book)
+        c, xd = book[idx].double(), x.double()
+        cc, xc = (c * c).sum(-1), (xd * c).sum(-1)
+        exact, size = cc - 2 * xc, cc + 2 * xc.abs()
+        cw = book[want].double()
+        exact_w = (cw * cw).sum(-1) - 2 * (xd * cw).sum(-1)
+        differ = idx != want
+        check(bool(((exact - exact_w).abs()[differ] <= IVF_RTOL * size[differ]).all()),
+              f"{label}: a code differs from the plain loop's off a near tie")
+        err = ((dist.double() - exact).abs() / size).max().item()
+        check(err <= IVF_RTOL, f"{label}: distance error {err} of its terms' size")
+        flops = 2.0 * N * K * D
+        b_ms, b_by = bound_ms(flops, 4.0 * (N * D + K * D) + 12.0 * N, "float32")
+        ms = time_ms(lambda: chunked_argmin(x, book))
+        res.append(dict(N=N, K=K, D=D, splits=kernels.nearest_plan(N, K, kernels._sm_count(device)),
+                        launches=launched, alloc_bytes=alloc, codes_differ=int(differ.sum()),
+                        max_rel_err=err, ms=ms, ms_batch=batch_ms(lambda: chunked_argmin(x, book)),
+                        plain_ms=time_ms(lambda: chunked_argmin_plain(x, book), reps=5),
+                        bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms,
+                        tflops=flops / ms / 1e9, design=IVF_DESIGN))
+        del x, book
+        torch.cuda.empty_cache()
+    emit({"ivf_step": res})
+    return res[0]
 
 
 def load_script(name: str):
@@ -1916,6 +2001,7 @@ def search_phase(seed: int, device, workdir: Path) -> dict:
         launches = dict(kernels.LAUNCHES)
         per = -(-n // 1024) * spec.n_mlp_steps
         want = {k: per if k in ("selected_scores", "select_rebuild") else 0 for k in launches}
+        want.update(ivf_launches(spec, -(-n // 1024), 1024, device))
         check(launches == want, f"encode {label}: launches {launches}, expected {want}")
         res["encode"][label] = dict(n=n, s=sec, vec_s=n / sec, launches=launches)
     part = np.load(f["codes_db.npz"].with_name("codes_db.part_0.npz"))["codes"]
@@ -2011,10 +2097,12 @@ def scale_phase(workdir: Path) -> dict:
     check(sorted(expected) == ["encode_db", "encode_trainset", "train"],
           f"scale: launch counts checked for {sorted(expected)}")
     for name, want in expected.items():
-        check(report["launches"][name] == want,
+        check(beam_launches(report["launches"][name]) == want,
               f"scale {name}: launches {report['launches'][name]}, expected {want}")
-    phase_sum = {k: sum(run.get(k, 0) for run in report["launches"].values()) for k in launches}
-    check(phase_sum == launches, f"scale: launches {launches} outside the phases {phase_sum}")
+    # the IVF step's kernels also run outside the phases (the k-means sample's MSE)
+    beam = beam_launches(launches)
+    phase_sum = {k: sum(run.get(k, 0) for run in report["launches"].values()) for k in beam}
+    check(phase_sum == beam, f"scale: launches {beam} outside the phases {phase_sum}")
     points = [dict(**p["parameters"], **{k: p[k] for k in ("R@1", "R@10", "R@100", "t_total")})
               for p in report["operating_points"]]
     r1 = [p["R@1"] for p in points if p["nprobe"] == 64 and p["nshort"] == 100]
@@ -2081,8 +2169,9 @@ class LaunchTally:
 def expect_encode_launches(label, launches, rows, spec) -> None:
     """Exact counts of parity encodes of ``rows`` (a count for each
     encode) at batch 1024: B2 and B3 once per MLP step and chunk, no other
-    kernel."""
+    beam-step kernel (the IVF step's are checked on the paths, ``run_path``)."""
     per = sum(-(-n // 1024) for n in rows) * spec.n_mlp_steps
+    launches = beam_launches(launches)
     want = {k: per if k in ("selected_scores", "select_rebuild") else 0 for k in launches}
     check(launches == want, f"{label}: launches {launches}, expected {want}")
 
@@ -2273,8 +2362,9 @@ def legacy_pq(device, workdir: Path, seed: int, tally: LaunchTally) -> dict:
     db_mse = float(_found(r"PQ-QINCo DB MSE: (\S+)", log)[0])
     enc_s = float(_found(r"Encoded \d+ vectors \((\S+)s\)", log)[0])
     recalls = [float(v) / 100 for v in _found(r"R@1=(\S+) R@10=(\S+) R@100=(\S+)", log)[0]]
-    check(not any(launches.values()) and not any(eval_launches.values()),
-          "PQ: the exact profile launched a kernel")
+    check(not any(beam_launches(launches).values())
+          and not any(beam_launches(eval_launches).values()),
+          "PQ: the exact profile launched a beam-step kernel")
     energy = float((db.astype(np.float64) ** 2).sum(-1).mean())
     # below the data's energy: better than the mean (zero) for every row
     check(len(part_s) == 2 and 0 < db_mse < energy and 0 < val_mse < energy,
@@ -2429,6 +2519,7 @@ def main() -> None:
     bd = breakdown_phase(seed, device)
     deep_kernel_checks(N, seed, device)
     wide_kernel_checks(N, seed, device)
+    ivf = ivf_kernel_checks(seed, device)
 
     # (label, spec, scoring kernel, data noise, MSE bound and least code
     # agreement vs exact)
@@ -2501,7 +2592,13 @@ def main() -> None:
              pallas_call=replaces, body=body, alias_of="fused_substep_scores",
              why="production B4's function through a TPU layout of its fetch; the card's B4 "
                  "gathers by id", **bd["kernels"]["b4_script"])
-        for k, (replaces, body) in B4_ALIASES.items()]})
+        for k, (replaces, body) in B4_ALIASES.items()] + [
+        dict(name="nearest", route="cuda", source="qinco_torch/csrc/nearest.cu", replaces=None,
+             pallas_call=None, why="the IVF step 0, which the JAX package leaves to XLA",
+             launches=launches["nearest"], merges=launches["nearest_merge"],
+             max_abs_err=None, library_ms=None, **{k: ivf[k] for k in (
+                 "ms", "ms_batch", "plain_ms", "bound_ms", "bound_by", "tflops", "design",
+                 "max_rel_err")})]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

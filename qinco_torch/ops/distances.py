@@ -3,12 +3,16 @@
 
 Distances use the matmul form ``‖a‖² + ‖b‖² − 2 a·bᵀ`` in float32.  Where
 they only rank (argmin / top-k) the constant ``‖a‖²`` is dropped.  Ties
-break as the JAX package breaks them: the lowest index first.
+break as the JAX package breaks them: the lowest index first.  On a CUDA
+device the IVF step's argmin is one hand-written kernel
+(``csrc/nearest.cu``) that never forms the distances in device memory.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import tracing
 
 
 def sq_norm(x: torch.Tensor) -> torch.Tensor:
@@ -51,16 +55,34 @@ def chunked_argmin(
     x: torch.Tensor, codebook: torch.Tensor, chunk: int = 65536,
     fast: bool = True, max_elems: int = 2 ** 28,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Nearest-codeword assignment against a huge codebook (the IVF book).
+    """Nearest-codeword assignment against a huge codebook (the IVF book):
+    (codes (N,) int64, best partial distances ‖c‖² − 2 x·c (N,) f32), the
+    first minimum, that is the lowest index among equal distances.
 
-    Scans ``codebook (K, d)`` in ``chunk``-row slices with a running
-    (best distance, best index) carry and ``x`` in row blocks, so the live
+    Float32 ``x`` and ``codebook`` on a CUDA device take the fused kernel
+    (:func:`qinco_torch.ops.kernels.nearest`: one or two launches, no
+    distance tile, ``chunk`` and ``max_elems`` not read); anything else
+    takes :func:`chunked_argmin_plain`, and its rows add to the counter
+    ``distances.plain_argmin_rows`` while recording (``tracing``).
+    ``fast`` is accepted for the JAX signature; the product is float32
+    either way."""
+    del fast
+    if x.is_cuda and x.dtype == torch.float32 and codebook.dtype == torch.float32:
+        from .kernels import nearest  # ops.kernels imports models, which imports this module
+        return nearest(x, codebook)
+    tracing.count("distances.plain_argmin_rows", x.shape[0])
+    return chunked_argmin_plain(x, codebook, chunk, max_elems)
+
+
+def chunked_argmin_plain(
+    x: torch.Tensor, codebook: torch.Tensor, chunk: int = 65536, max_elems: int = 2 ** 28,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chunked_argmin` in plain torch, on any device: scans
+    ``codebook (K, d)`` in ``chunk``-row slices with a running (best
+    distance, best index) carry and ``x`` in row blocks, so the live
     distance tile stays under ``max_elems``.  The carry takes a chunk's
     winner only when it is strictly smaller, so the earlier chunk wins a
-    tie, and ``argmin`` within a chunk takes the first minimum.  ``fast``
-    is accepted for the JAX signature; the product is float32 either way.
-    Returns (codes (N,) int64, best partial distances (N,) f32)."""
-    del fast
+    tie, and ``argmin`` within a chunk takes the first minimum."""
     K = codebook.shape[0]
     chunk = min(chunk, K)
     row_block = max(1, max_elems // chunk)

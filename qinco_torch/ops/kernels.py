@@ -18,6 +18,13 @@ versions and their wrappers (counterpart of
 - :func:`select_rebuild` replaces ``select_rebuild_pallas``: the exact
   beam top-F_out over each vector's packed distances (``lax.top_k`` tie
   order), then the F_out reconstructions through the step MLP.
+- :func:`nearest` takes the IVF step 0 (``ops.distances.chunked_argmin``,
+  which the JAX package leaves to XLA) off its plain loop of cuBLAS
+  products and row mins: each row's nearest row of an f32 book, the
+  product and the first-minimum argmin in one kernel that never writes a
+  distance, the book split over the card by :func:`nearest_plan` and the
+  splits merged by a second launch.  It has no ``kernels.*`` span; its
+  launch is the profiler record ``qinco_torch::nearest``.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its CUDA kernel (``qinco_torch/csrc/``) for a tensor on a CUDA device;
@@ -55,6 +62,7 @@ version on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -75,16 +83,20 @@ _KERNELS = {
     "select_rebuild": ("select_rebuild.cu", 13, 18),
     "fused_substep_scores": ("fused_substep_scores.cu", 12, 19),
     "candidate_scores": ("candidate_scores.cu", 12, 15),
+    # the IVF step 0's nearest-row kernel and its merge (ops/distances.py)
+    "nearest": ("nearest.cu", 6, 4),
     # the phase-breakdown kernels of B2 and B4 (ops/breakdown.py)
     "ktopa_variants": ("ktopa_variants.cu", 13, 16),
     "fused_cuts": ("fused_cuts.cu", 12, 19),
     "stream_probes": ("stream_probes.cu", 2, 6),
 }
 # The libraries compiled together at the first use of any one of them: the
-# beam step's four, and the phase-breakdown kernels (ops/breakdown.py),
-# which the beam step never waits for.
+# encode's five (the beam step's four and the IVF step's), and the
+# phase-breakdown kernels (ops/breakdown.py), which the encode never waits
+# for.
 _BUILD_GROUPS = (("selected_scores", "select_rebuild", "fused_substep_scores",
-                  "candidate_scores"), ("ktopa_variants", "fused_cuts", "stream_probes"))
+                  "candidate_scores", "nearest"),
+                 ("ktopa_variants", "fused_cuts", "stream_probes"))
 # The modes of scripts/ktopa_breakdown.py's ktopa_kernel and the cuts of
 # scripts/kernel_variants.py that ops/breakdown.py runs on the card.
 KTOPA_MODES = ("full", "noextract", "deferred", "mlponly", "nodist", "shell", "perslot",
@@ -102,11 +114,16 @@ FUSED_ALIASES = {"fetchb": "sel+fetch"}
 FUSED_KERNELS = tuple(c for c in FUSED_CUTS if c not in FUSED_ALIASES)
 # The streaming probes (ops/breakdown.py's stream_probe), by kind and input.
 STREAM_PROBES = ("noop", "bw_f32", "bw_bf16")
-# Kernel launches: the four beam-step kernels by name, the breakdown
-# kernels by wrapper and cut (the recorder's launch counter group).
+# The IVF step's kernels (csrc/nearest.cu): the nearest-row pass, and the
+# merge of its splits' partials where the book is split (nearest_plan).
+NEAREST_KERNELS = ("nearest", "nearest_merge")
+# Kernel launches: the four beam-step kernels and the IVF step's two by
+# name, the breakdown kernels by wrapper and cut (the recorder's launch
+# counter group).
 LAUNCHES = tracing.LAUNCHES
 LAUNCHES.update({name: 0 for name in (
     "selected_scores", "select_rebuild", "fused_substep_scores", "candidate_scores",
+    *NEAREST_KERNELS,
     *(f"ktopa_variant:{m}" for m in KTOPA_KERNELS), *(f"fused_cut:{c}" for c in FUSED_KERNELS),
     "selcat", *(f"stream_probe:{k}" for k in STREAM_PROBES))})
 
@@ -1296,6 +1313,70 @@ def _passed_fit(D: int, n: int, most, sms: int, smem_of, clustered: bool) -> Opt
                 return LaunchPlan(_PASSED_TILE, per, smem, items, blocks, True, cluster, passes)
             per //= 2
     return None
+
+
+# ---------------------------------------------------------------------------
+# The IVF step 0: each row's nearest row of an f32 book (csrc/nearest.cu)
+# ---------------------------------------------------------------------------
+
+_NN_TILE = 128  # nn::kBM = nn::kBN: rows of x a block, book rows a tile
+_NN_BLOCKS_PER_SM = 2  # __launch_bounds__(kThreads, 2)
+
+
+@functools.lru_cache(maxsize=256)
+def nearest_plan(N: int, K: int, sms: int = _SMS) -> int:
+    """The splits of a ``K``-row book for :func:`nearest` at ``N`` rows:
+    of the counts that keep the blocks (row blocks x splits) within four
+    waves of the card's resident slots (two blocks an SM), the one that
+    takes the fewest tile-times, waves x (tiles a split + half a tile for a
+    block's start and its merge); the fewest splits on a tie.  At N = 1024,
+    K = 2^20 on 132 SMs: 33 splits, 264 blocks in one wave."""
+    rows, tiles = -(-N // _NN_TILE), -(-K // _NN_TILE)
+    slots = _NN_BLOCKS_PER_SM * sms
+    best = (float("inf"), 1)
+    for splits in range(1, min(tiles, 65535, max(1, -(-4 * slots // rows))) + 1):
+        cost = -(-rows * splits // slots) * (-(-tiles // splits) + 0.5)
+        if cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
+def nearest(x: torch.Tensor, book: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's nearest row of ``book (K, D)`` for ``x (N, D)``, float32 on
+    a CUDA device: (index (N,) int64, partial distance ‖c‖² − 2 x·c (N,)
+    f32), the first minimum (the lowest index among equal distances), in
+    IEEE f32.  One launch of the nearest kernel, and one of its merge where
+    :func:`nearest_plan` splits the book; no (N, K) tile is allocated.
+    ``ops.distances.chunked_argmin_plain`` is its plain version."""
+    _require_cuda(x)
+    if x.dim() != 2 or book.dim() != 2 or x.shape[1] != book.shape[1] or not len(book):
+        raise ValueError(f"nearest takes x (N, D) and a book (K > 0, D), got {tuple(x.shape)} "
+                         f"and {tuple(book.shape)}")
+    if x.dtype != torch.float32 or book.dtype != torch.float32 or book.device != x.device:
+        raise ValueError(f"nearest takes float32 x and book on one device, got {x.dtype} on "
+                         f"{x.device} and {book.dtype} on {book.device}")
+    if x.shape[1] % 4:  # zero columns change no product and no norm
+        pad = -x.shape[1] % 4
+        x, book = F.pad(x, (0, pad)), F.pad(book, (0, pad))
+    x, book = x.contiguous(), book.contiguous()
+    (N, D), K = x.shape, book.shape[0]
+    splits = nearest_plan(N, K, _sm_count(x.device))
+    part_d = torch.empty((splits, N), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((splits, N), dtype=torch.int64, device=x.device)
+    if splits == 1:
+        out_d, out_i = part_d[0], part_i[0]
+    else:
+        out_d = torch.empty((N,), dtype=torch.float32, device=x.device)
+        out_i = torch.empty((N,), dtype=torch.int64, device=x.device)
+    if N:
+        # A profiler record of the FUNCTION scope (record_function's is the
+        # user scope, to which the profiler ties no device time): the
+        # profiler ties the launches' device time to it, as to an aten op's,
+        # so a caller's span around chunked_argmin sees the kernels.
+        with torch._C._profiler._RecordFunctionFast("qinco_torch::nearest"):
+            _launch("nearest", x, [x, book, part_d, part_i, out_d, out_i], [N, K, D, splits])
+        LAUNCHES["nearest_merge"] += splits > 1
+    return out_i, out_d
 
 
 # ---------------------------------------------------------------------------

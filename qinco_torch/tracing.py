@@ -62,9 +62,16 @@ Counters: ``io.h2d_bytes``, the bytes copied host to device by
 ``selected_scores`` launch's plan streams from L2 (its tiles' and items'
 products, once a cluster: ``kernels.selected_stream_bytes``), while
 recording; ``kernels.refetch_bytes``, the sum of the two spans'
-``refetch_bytes``, while recording; and
+``refetch_bytes``, while recording; ``distances.plain_argmin_rows``, the rows that
+``ops.distances.chunked_argmin`` gives its plain loop (not CUDA float32:
+the CPU, other types), while recording; and
 :data:`LAUNCHES`, the kernel launches by kernel (``ops.kernels``), always
-on and never cleared (its readers take differences).
+on and never cleared (its readers take differences): the beam step's
+kernels by wrapper name, the IVF step's ``nearest`` and its merge
+``nearest_merge`` (a call launches the one, and the other where the book
+is split), the breakdown kernels by wrapper and cut.  Where every IVF
+step took the kernel, ``nearest`` counts the calls and
+``distances.plain_argmin_rows`` reads 0.
 
 The benchmark (``port_bench/progspans.py``) reads ``encode.chunk``,
 ``encode.wait``, ``kernels.*`` (with their ``refetch_bytes``),

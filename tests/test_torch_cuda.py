@@ -884,9 +884,9 @@ from qinco_torch.config import load_config
 from qinco_torch.models.params import (QincoParams, StepParams, init_model_state, init_params,
                                        param_leaves)
 from qinco_torch.models.spec import QincoSpec
-from qinco_torch.ops.distances import sqdist_topk
+from qinco_torch.ops.distances import chunked_argmin_plain, sqdist_topk
 from qinco_torch.parallel import distributed, mesh as pmesh
-from qinco_torch.parallel.sharded_ops import shard_codebook, sharded_coarse_topk
+from qinco_torch.parallel.sharded_ops import shard_codebook, sharded_coarse_topk, sharded_ivf_assign
 from qinco_torch.train import train_step as tts
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -917,9 +917,12 @@ for m in (None, mesh):
 book = torch.randn((1 << 16, 128), generator=g, device=dev)
 xq = book[:512] + 0.5 * torch.randn((512, 128), generator=g, device=dev)
 ids, _ = sharded_coarse_topk(mesh, xq, shard_codebook(mesh, book), 64, exact=False)
+ivf = sharded_ivf_assign(mesh, xq, shard_codebook(mesh, book))
 json.dump(dict(world=mesh.world, grouped=mesh.grouped,
                step_equal=all(torch.equal(a, b) for a, b in zip(*runs)),
-               topk_equal=torch.equal(ids, sqdist_topk(xq, book, 64)[0])), open(sys.argv[1], "w"))
+               topk_equal=torch.equal(ids, sqdist_topk(xq, book, 64)[0]),
+               ivf_equal=torch.equal(ivf, chunked_argmin_plain(xq, book)[0])),
+          open(sys.argv[1], "w"))
 distributed.shutdown()
 """
 
@@ -961,6 +964,14 @@ def test_sharded_coarse_topk_in_a_one_rank_group_equals_sqdist_topk(one_rank_gro
     """The sharded top-64 over a 2^16-row book (shard, gather and merge on
     the card) gives the plain top-k's ids."""
     assert one_rank_group["topk_equal"]
+
+
+@pytest.mark.cuda
+def test_sharded_ivf_assign_in_a_one_rank_group_equals_the_plain_loop(one_rank_group):
+    """The sharded IVF assignment over the same book (each shard through the
+    IVF step's kernel, then the first minimum over the shards) gives the
+    plain loop's ids."""
+    assert one_rank_group["ivf_equal"]
 
 
 # D = 768 (Contriever's width): B2 and B3 where their plans take D in
