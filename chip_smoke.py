@@ -852,7 +852,7 @@ def ivf_launches(spec, chunks: int, batch: int, device) -> dict:
     book; none without the IVF step."""
     if not spec.ivf_in_use:
         return {k: 0 for k in kernels.NEAREST_KERNELS}
-    merge = kernels.nearest_plan(batch, spec.ivf_K, kernels._sm_count(device)) > 1
+    merge = kernels.nearest_plan(batch, spec.ivf_K, kernels.sm_count(device)) > 1
     return {"nearest": chunks, "nearest_merge": chunks * merge}
 
 
@@ -1164,7 +1164,7 @@ def wide_kernel_checks(N: int, seed: int, device) -> None:
     for F_in, A, step in ((topa.B, topa.A, ""), (1, max(topa.B, topa.A), " IVF first step")):
         for spec, external in ((topa, False), (vals, True)):
             p, _, xh = step_inputs(spec, N, F_in, seed, device)
-            plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), A,
+            plan = kernels.selected_launch_plan(spec, xh, kernels.selected_weights(spec, p), A,
                                                  not external)
             label = f"qinco2-L D={WIDE_D}{step}"
             check(plan.d_passes > 1, f"selected_scores {label}: one pass over D ({plan})")
@@ -1172,7 +1172,7 @@ def wide_kernel_checks(N: int, seed: int, device) -> None:
                 F_out = min(spec.B, F_in * A)
                 reb = kernels.rebuild_plan(N, F_in * A, F_out, spec.D, spec.de, spec.dh, spec.de,
                                            bf16=True, low_rank=False, stages=3 + 2 * spec.L,
-                                           sms=kernels._sm_count(device))
+                                           sms=kernels.sm_count(device))
                 check(reb.d_passes > 1, f"select_rebuild {label}: one pass over D ({reb})")
             check_selected(label + (" (external vals)" if external else ""), spec, N, F_in, A,
                            seed, device, external=external, reps=DEEP_REPS)
@@ -1220,7 +1220,7 @@ def ivf_kernel_checks(seed: int, device) -> dict:
         flops = 2.0 * N * K * D
         b_ms, b_by = bound_ms(flops, 4.0 * (N * D + K * D) + 12.0 * N, "float32")
         ms = time_ms(lambda: chunked_argmin(x, book))
-        res.append(dict(N=N, K=K, D=D, splits=kernels.nearest_plan(N, K, kernels._sm_count(device)),
+        res.append(dict(N=N, K=K, D=D, splits=kernels.nearest_plan(N, K, kernels.sm_count(device)),
                         launches=launched, alloc_bytes=alloc, codes_differ=int(differ.sum()),
                         max_rel_err=err, ms=ms, ms_batch=batch_ms(lambda: chunked_argmin(x, book)),
                         plain_ms=time_ms(lambda: chunked_argmin_plain(x, book), reps=5),
@@ -1292,7 +1292,7 @@ def compare_sel(label, got, want, spec, x, xh, p, F_in) -> torch.Tensor:
     """B4's bin minima (f32 sums in another order on each side): ids equal
     wherever the bin's two least substep distances are more than 1e-3
     apart; returns where the ids agree."""
-    w = kernels._fused_weights(spec, p)
+    w = kernels.fused_weights(spec, p)
     packed = kernels._substep_packed(spec, x.repeat_interleave(F_in, 0) - xh, w.sub_t, w.cn2)
     two = _unpacked(packed).view(len(xh), spec.A, -1).sort(dim=2).values[..., :2]
     same = kernels.unpack_ids(got) == kernels.unpack_ids(want)
@@ -1340,7 +1340,7 @@ def variant_checks(seed: int, device, tkv) -> dict:
         plain = lambda: breakdown.fused_cut_plain(spec, x, xh, p, A, cut)  # noqa: E731
         want, extra = plain(), {}
         if cut == "dsub":
-            w = kernels._fused_weights(spec, p)
+            w = kernels.fused_weights(spec, p)
             packed = kernels._substep_packed(spec, x.repeat_interleave(spec.B, 0) - xh, w.sub_t,
                                              w.cn2)
             mass = _unpacked(packed).abs().view(len(xh), A, -1).sum(2)

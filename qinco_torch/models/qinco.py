@@ -307,7 +307,7 @@ def encode(
     x = x.float()
     if spec.ivf_in_use:
         with tracing.span("encode.ivf"):
-            codes0, _ = chunked_argmin(x, params.codebook0, chunk=ivf_chunk, fast=spec.fast)
+            codes0, _ = chunked_argmin(x, params.codebook0, chunk=ivf_chunk)
         codes0 = codes0[:, None]  # (N, 1): the beam enters the MLP chain at 1
     else:
         codes0, _ = sqdist_topk(x, params.codebook0, spec.beam0)  # (N, beam0)

@@ -146,7 +146,7 @@ def ktopa_variant_plain(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n
     ``p`` the step's weights.  Returns ``(N·F_in, n_codes)`` float32
     packed with each slot's id."""
     F_in = _check_variant(spec, x, xh, p, n_codes, mode)
-    return _variant_plain(spec, x, xh, kernels._selected_weights(spec, p), n_codes, F_in, mode)
+    return _variant_plain(spec, x, xh, kernels.selected_weights(spec, p), n_codes, F_in, mode)
 
 
 def nodist_exact(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p,
@@ -159,7 +159,7 @@ def nodist_exact(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p,
     comparisons hold both against these sums (as ``tests/torch_exact.py``
     does for select-rebuild)."""
     F_in = _check_variant(spec, x, xh, p, n_codes, "nodist")
-    w = kernels._selected_weights(spec, p)
+    w = kernels.selected_weights(spec, p)
     rnd, mm = kernels.rounder(spec), kernels._exact
     D = xh.shape[1]
     row = w.table.float()[0]  # every slot's candidate: codeword 0
@@ -222,7 +222,7 @@ def _with_rows(plan: kernels.LaunchPlan, rows: Optional[int], n: int, smem_of,
         raise ValueError(f"{rows} rows a work item need {smem} B of shared memory "
                          f"> {kernels._SMEM_LIMIT}")
     items = -(-n // rows)
-    sms = kernels._sm_count(device)
+    sms = kernels.sm_count(device)
     if not clustered:
         return plan._replace(per_item=rows, smem=smem, items=items, blocks=min(items, sms))
     cluster, blocks = kernels.wg_grid(items, sms)
@@ -233,19 +233,17 @@ def ktopa_plan(spec: QincoSpec, xh: torch.Tensor, p, n_codes: int,
                rows: Optional[int] = None) -> kernels.LaunchPlan:
     """The launch plan of :func:`ktopa_variant` on ``xh``'s card: B2's
     (``selected_plan``), with ``rows`` beam rows a work item if given."""
-    return _ktopa_plan(xh, kernels._selected_weights(spec, p), spec.L, n_codes, rows)
+    return _ktopa_plan(xh, kernels.selected_weights(spec, p), spec.L, n_codes, rows)
 
 
 def _ktopa_plan(xh, w, L: int, n_codes: int, rows: Optional[int]) -> kernels.LaunchPlan:
     NF, D = xh.shape
     K = w.table.shape[0]
-    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     stages = 2 + 2 * L + (w.out_proj is not None)  # W2, wfold, the FFN, [out_proj]
-    plan = kernels.selected_plan(NF, n_codes, D, K, De, Dh, bf16=True, topa=True, stages=stages,
-                                 sms=kernels._sm_count(xh.device))
-    return _with_rows(plan, rows, NF,
-                      lambda R, tm: kernels._selected_mma_smem(R, tm, n_codes, D, K, De, Dh, True),
-                      xh.device, clustered=True)
+    plan = kernels.selected_plan(NF, n_codes, D, K, w.De, w.Dh, bf16=True, topa=True,
+                                 stages=stages, sms=kernels.sm_count(xh.device))
+    return _with_rows(plan, rows, NF, lambda R, tm: kernels._selected_mma_smem(
+        R, tm, n_codes, D, K, w.De, w.Dh, True), xh.device, clustered=True)
 
 
 def ktopa_variant(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int,
@@ -254,22 +252,18 @@ def ktopa_variant(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes
     ``csrc/ktopa_variants.cu`` kernel), its plain version
     (:func:`ktopa_variant_plain`) on a CPU tensor."""
     F_in = _check_variant(spec, x, xh, p, n_codes, mode)
-    w = kernels._selected_weights(spec, p)
     if xh.device.type == "cpu":
-        return _variant_plain(spec, x, xh, w, n_codes, F_in, mode)
+        return _variant_plain(spec, x, xh, kernels.selected_weights(spec, p), n_codes, F_in, mode)
     kernels._require_cuda(xh)
     kernel = KTOPA_ALIASES.get(mode, mode)
+    w = kernels.selected_weights(spec, p, kernel=True)
     plan = _ktopa_plan(xh, w, spec.L, n_codes, rows)
     NF, D = xh.shape
     K, Wt = w.table.shape
-    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
-    b = kernels.wg_blocked
     kernels._launch(
-        "ktopa_variants", xh,
-        [x.contiguous(), xh.contiguous(), None, w.sub_t, w.cn2, w.table, b(w.wfold), b(w.w2),
-         w.concat_b, b(w.ffn_up), b(w.ffn_down), b(w.out_proj), out],
-        [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
+        "ktopa_variants", xh, [x.contiguous(), xh.contiguous(), None, *w.ptrs(), out],
+        [NF, F_in, D, K, w.De, w.Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
          plan.smem, plan.cluster, kernels._res(spec), _SEL_CUT[kernel]],
         count=f"ktopa_variant:{kernel}")
     return out
@@ -363,7 +357,7 @@ def fused_cut_plain(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_cod
     - ``fullopt``: B4's selection, the winners' bf16 rows of T, the stand-in
       chain, d = ||r - (out + cand)||^2 packed with the winner's id."""
     F_in = _check_cut(spec, x, xh, p, n_codes, cut)
-    w = kernels._fused_weights(spec, p)
+    w = kernels.fused_weights(spec, p)
     return _cut_plain(spec, x, xh, p, w, n_codes, F_in, cut, _cut_table(spec, p, cut))
 
 
@@ -420,36 +414,30 @@ def fused_cut_plan(spec: QincoSpec, xh: torch.Tensor, p, n_codes: int,
     """The launch plan of :func:`fused_cut` on ``xh``'s card: B4's
     (``fused_plan``; for the stand-in cuts that of the folded layout on the
     stand-in weights), with ``rows`` beam rows a work item if given."""
-    w = _cut_weights(spec, p, cut, _cut_table(spec, p, cut))
-    return _cut_plan(spec, xh, w, n_codes, p.in_proj is not None and cut not in _STAND_IN, rows)
+    return _cut_plan(spec, xh, _cut_weights(spec, p, cut, _cut_table(spec, p, cut)), n_codes,
+                     rows)
 
 
-def _cut_weights(spec, p, cut: str, table) -> kernels._FusedWeights:
-    """The operands the cut's kernel takes: B4's, or for the stand-in cuts
-    the folded layout (off_up 0, no low-rank factor) with the stand-in
-    weights as w2, ffn_up, ffn_down (one copy a block) and out_proj, a zero
-    bias, and T's slices."""
-    w = kernels._fused_weights(spec, p)
+def _cut_weights(spec, p, cut: str, table) -> kernels.FusedWeights:
+    """The kernel-form operands the cut's kernel takes: B4's with the cut's
+    table if it has one, or for the stand-in cuts B4's folded layout over
+    T with the stand-in weights as w2, ffn_up, ffn_down (one copy a block)
+    and out_proj (:func:`kernels.folded_weights`)."""
     if cut not in _STAND_IN:
-        return kernels._pad_fused_rank(w)
+        w = kernels.fused_weights(spec, p, kernel=True)
+        return w if table is None else w._replace(table=table)
     s = stand_in_weights(spec, p, table)
-    D, De, L = spec.D, spec.De, spec.L
-    return w._replace(table=table, w2=s.w2, concat_w2=None,
-                      concat_b=torch.zeros(De, device=table.device),
-                      ffn_up=s.up.expand(L, -1, -1).contiguous(),
-                      ffn_down=s.down.expand(L, -1, -1).contiguous(), out_proj=s.out,
-                      off_h=D, off_w1=D + De, off_up=0)
+    L = spec.L
+    return kernels.folded_weights(spec, p, table, s.w2, s.up.expand(L, -1, -1).contiguous(),
+                                  s.down.expand(L, -1, -1).contiguous(), s.out)
 
 
-def _cut_plan(spec, xh, w, n_codes: int, in_proj: bool, rows: Optional[int]) -> kernels.LaunchPlan:
-    plan = kernels._fused_launch_plan(spec, xh, w, n_codes, in_proj)
+def _cut_plan(spec, xh, w, n_codes: int, rows: Optional[int]) -> kernels.LaunchPlan:
+    plan = kernels.fused_launch_plan(spec, xh, w, n_codes)
     NF, D = xh.shape
     K = w.table.shape[0]
-    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
-    return _with_rows(plan, rows, NF,
-                      lambda R, tm: kernels._fused_mma_smem(R, tm, n_codes, D, K, De, Dh, Wc,
-                                                            kernels._fused_layout(w), in_proj),
-                      xh.device)
+    return _with_rows(plan, rows, NF, lambda R, tm: kernels._fused_mma_smem(
+        R, tm, n_codes, D, K, w.De, w.Dh, w.Wc, w.layout, w.has_in_proj), xh.device)
 
 
 def fused_cut(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: int, cut: str,
@@ -459,25 +447,20 @@ def fused_cut(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, n_codes: in
     F_in = _check_cut(spec, x, xh, p, n_codes, cut)
     table = _cut_table(spec, p, cut)
     if xh.device.type == "cpu":
-        return _cut_plain(spec, x, xh, p, kernels._fused_weights(spec, p), n_codes, F_in, cut,
+        return _cut_plain(spec, x, xh, p, kernels.fused_weights(spec, p), n_codes, F_in, cut,
                           table)
     kernels._require_cuda(xh)
     kernel = FUSED_ALIASES.get(cut, cut)
     w = _cut_weights(spec, p, kernel, table)
-    plan = _cut_plan(spec, xh, w, n_codes, p.in_proj is not None and kernel not in _STAND_IN,
-                     rows)
+    plan = _cut_plan(spec, xh, w, n_codes, rows)
     NF, D = xh.shape
-    K = w.table.shape[0]
-    table = w.table if table is None else table
-    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
+    K, Wt = w.table.shape
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
     kernels._launch(
-        "fused_cuts", xh,
-        [x.contiguous(), xh.contiguous(), w.sub_t, w.cn2, table, w.w2, w.concat_w2, w.concat_b,
-         w.ffn_up, w.ffn_down, w.out_proj, out],
-        [NF, F_in, D, K, De, Dh, spec.L, n_codes, table.shape[1], Wc, w.off_h, w.off_w1,
-         w.off_up, plan.tm, plan.per_item, plan.blocks, plan.smem, kernels._res(spec),
-         _FUSED_CUT[kernel]], count=f"fused_cut:{kernel}")
+        "fused_cuts", xh, [x.contiguous(), xh.contiguous(), *w.ptrs(), out],
+        [NF, F_in, D, K, w.De, w.Dh, spec.L, n_codes, Wt, w.Wc, w.off_h, w.off_w1, w.off_up,
+         plan.tm, plan.per_item, plan.blocks, plan.smem, kernels._res(spec), _FUSED_CUT[kernel]],
+        count=f"fused_cut:{kernel}")
     return out
 
 
@@ -507,7 +490,7 @@ def selcat_plain(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p,
     instead of rnd(C)·rnd(P·(I + W1)) summed in f32, and the distance
     formed from x and xh instead of r = x - xh."""
     F_in, A = _check_selcat(spec, x, xh, p, vals)
-    return _selcat_plain(spec, x, xh, kernels._selected_weights(spec.with_(fast=False), p), vals,
+    return _selcat_plain(spec, x, xh, kernels.selected_weights(spec.with_(fast=False), p), vals,
                          F_in)
 
 
@@ -525,21 +508,21 @@ def selcat_plan(spec: QincoSpec, xh: torch.Tensor, p, n_codes: int,
                 rows: Optional[int] = None) -> kernels.LaunchPlan:
     """The launch plan of :func:`selcat`: B2''s external-vals plan with
     (R, D) f32 more shared memory a block (xh kept in f32)."""
-    return _selcat_plan(xh, kernels._selected_weights(spec.with_(fast=False), p), spec.L,
+    return _selcat_plan(xh, kernels.selected_weights(spec.with_(fast=False), p), spec.L,
                         n_codes, rows)
 
 
 def _selcat_plan(xh, w, L: int, A: int, rows: Optional[int]) -> kernels.LaunchPlan:
     NF, D = xh.shape
     K = w.table.shape[0]
-    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
 
     def smem(R, tm):
-        return kernels._selected_mma_smem(R, tm, A, D, K, De, Dh, False, kernels._a16(4 * R * D))
+        return kernels._selected_mma_smem(R, tm, A, D, K, w.De, w.Dh, False,
+                                          kernels._a16(4 * R * D))
 
     stages = 1 + 2 * L + (w.out_proj is not None)  # W2, the FFN, [out_proj]
-    plan = kernels._selected_wg_plan(NF, A, D, K, De, Dh, False, stages,
-                                     kernels._sm_count(xh.device), row_bytes=4 * D, name="selcat")
+    plan = kernels._selected_wg_plan(NF, A, D, K, w.De, w.Dh, False, stages,
+                                     kernels.sm_count(xh.device), row_bytes=4 * D, name="selcat")
     return _with_rows(plan, rows, NF, smem, xh.device, clustered=True)
 
 
@@ -549,21 +532,18 @@ def selcat(spec: QincoSpec, x: torch.Tensor, xh: torch.Tensor, p, vals: torch.Te
     ``csrc/ktopa_variants.cu``), its plain version (:func:`selcat_plain`) on
     a CPU tensor."""
     F_in, A = _check_selcat(spec, x, xh, p, vals)
-    w = kernels._selected_weights(spec.with_(fast=False), p)
+    folded = spec.with_(fast=False)
     if xh.device.type == "cpu":
-        return _selcat_plain(spec, x, xh, w, vals, F_in)
+        return _selcat_plain(spec, x, xh, kernels.selected_weights(folded, p), vals, F_in)
     kernels._require_cuda(xh)
+    w = kernels.selected_weights(folded, p, kernel=True)
     plan = _selcat_plan(xh, w, spec.L, A, rows)
     NF, D = xh.shape
     K, Wt = w.table.shape
-    De, Dh = w.w2.shape[1], w.ffn_up.shape[2]
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
-    b = kernels.wg_blocked
     kernels._launch(
-        "ktopa_variants", xh,
-        [x.contiguous(), xh.contiguous(), vals.contiguous(), w.sub_t, w.cn2, w.table, None,
-         b(w.w2), w.concat_b, b(w.ffn_up), b(w.ffn_down), b(w.out_proj), out],
-        [NF, F_in, D, K, De, Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
+        "ktopa_variants", xh, [x.contiguous(), xh.contiguous(), vals.contiguous(), *w.ptrs(), out],
+        [NF, F_in, D, K, w.De, w.Dh, spec.L, A, Wt, plan.tm, plan.per_item, plan.blocks,
          plan.smem, plan.cluster, kernels._res(spec), _SEL_CUT["selcat"]], count="selcat")
     return out
 

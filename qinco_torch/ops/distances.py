@@ -52,8 +52,7 @@ def sqdist_topk(a: torch.Tensor, b: torch.Tensor, k: int):
 
 
 def chunked_argmin(
-    x: torch.Tensor, codebook: torch.Tensor, chunk: int = 65536,
-    fast: bool = True, max_elems: int = 2 ** 28,
+    x: torch.Tensor, codebook: torch.Tensor, chunk: int = 65536, max_elems: int = 2 ** 28,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-codeword assignment against a huge codebook (the IVF book):
     (codes (N,) int64, best partial distances ‖c‖² − 2 x·c (N,) f32), the
@@ -63,10 +62,9 @@ def chunked_argmin(
     (:func:`qinco_torch.ops.kernels.nearest`: one or two launches, no
     distance tile, ``chunk`` and ``max_elems`` not read); anything else
     takes :func:`chunked_argmin_plain`, and its rows add to the counter
-    ``distances.plain_argmin_rows`` while recording (``tracing``).
-    ``fast`` is accepted for the JAX signature; the product is float32
-    either way."""
-    del fast
+    ``distances.plain_argmin_rows`` while recording (``tracing``).  The
+    product is float32 on every route (the JAX package's ``fast`` picks
+    its TPU precision, and has no counterpart here)."""
     if x.is_cuda and x.dtype == torch.float32 and codebook.dtype == torch.float32:
         from .kernels import nearest  # ops.kernels imports models, which imports this module
         return nearest(x, codebook)

@@ -41,7 +41,12 @@ Under bf16 every kernel runs its MLP products on the tensor cores.
 Under float32 every kernel runs them on the CUDA cores in IEEE f32 FFMA
 (TF32 would give other results), through the register-tiled stage of
 ``csrc/f32_tile.cuh`` (persistent blocks, the weights streamed by bulk
-copies in the blocked layout of :func:`blocked`).  :func:`selected_plan`,
+copies in the blocked layout of :func:`blocked`).  Each beam-step wrapper
+takes its operands from one builder (:func:`selected_weights` for B2,
+:func:`fused_weights` for B4, :func:`chain_weights` for B3 and B5) in the
+plain form or in the form its kernel reads, which :func:`weight_form`
+alone decides; each tuple carries its widths and its launch's pointer
+list (``ptrs``).  :func:`selected_plan`,
 :func:`fused_plan`,
 :func:`candidate_plan` and :func:`rebuild_plan` work out each launch
 (tile, rows or vectors per work item, shared memory, blocks) from the
@@ -68,7 +73,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -267,7 +272,9 @@ def _check_rows(name: str, x, xh, p) -> int:
 # ---------------------------------------------------------------------------
 
 
-class _SelectedWeights(NamedTuple):
+class SelectedWeights(NamedTuple):
+    """B2's operands (:func:`selected_weights`; the shapes are the plain
+    form's) and their widths."""
     sub_t: torch.Tensor  # (D, K) f32: substep codebook rounded, transposed
     cn2: torch.Tensor  # (K,) f32: squared norms of the f32 substep codebook
     table: torch.Tensor  # (K, Wt) dt: lean C (Wt = D) or folded [C | h_cand]
@@ -277,18 +284,27 @@ class _SelectedWeights(NamedTuple):
     ffn_up: torch.Tensor  # (L, De, Dh) dt
     ffn_down: torch.Tensor  # (L, Dh, De) dt
     out_proj: Optional[torch.Tensor]  # (De, D) dt
+    De: int
+    Dh: int
+
+    # the weights a kernel streams: weight_form lays them out
+    STREAMED = ("wfold", "w2", "ffn_up", "ffn_down", "out_proj")
+
+    def ptrs(self) -> list:
+        """The operands in the order of B2's C entry points
+        (``selected_scores.cu``, ``ktopa_variants.cu``)."""
+        return [self.sub_t, self.cn2, self.table, self.wfold, self.w2, self.concat_b, self.ffn_up,
+                self.ffn_down, self.out_proj]
 
 
-def _selected_weights(spec: QincoSpec, p, stream=None) -> _SelectedWeights:
+def selected_weights(spec: QincoSpec, p, kernel: bool = False) -> SelectedWeights:
     """The operands of ``selected_scores_pallas``.  Under ``spec.fast``
     the lean fetch: the dt codebook, multiplied into the folded weight
     wfold = P·(I+W1) (computed in high precision, as JAX's HIGHEST).
     Otherwise the folded table rnd([C | cp + rnd(cp)·rnd(W1)]) with
-    cp = rnd(C)·rnd(P), or C without in_proj.  ``stream`` (default: cast
-    to dt) takes each streamed weight (wfold, w2, ffn_up, ffn_down,
-    out_proj) to the form a kernel reads."""
+    cp = rnd(C)·rnd(P), or C without in_proj.  The streamed weights in the
+    plain form, or with ``kernel`` in the kernel's (:func:`weight_form`)."""
     dt = _compute_dtype(spec)
-    stream = stream or (lambda t: t.to(dt).contiguous())
     rnd = rounder(spec)
     h_w = p.in_proj.shape[1] if p.in_proj is not None else spec.D
     w1, w2 = p.concat_w[:h_w], p.concat_w[h_w:]
@@ -298,20 +314,16 @@ def _selected_weights(spec: QincoSpec, p, stream=None) -> _SelectedWeights:
         wfold = torch.eye(h_w, dtype=torch.float32, device=w1.device) + w1
         if p.in_proj is not None:
             wfold = _exact(p.in_proj, wfold)
-        wfold = stream(wfold)
         table = C.to(dt)
     else:
         cp = _exact(rnd(C), rnd(p.in_proj)) if p.in_proj is not None else C
         table = torch.cat([C, cp + _exact(rnd(cp), rnd(w1))], dim=1).to(dt)
     sub_t, cn2 = _substep_operands(spec, p)
-    return _SelectedWeights(
-        sub_t=sub_t, cn2=cn2, table=table.contiguous(), wfold=wfold,
-        w2=stream(w2),
-        concat_b=p.concat_b.float().contiguous(),
-        ffn_up=stream(p.ffn_up),
-        ffn_down=stream(p.ffn_down),
-        out_proj=None if p.out_proj is None else stream(p.out_proj),
-    )
+    De, Dh = p.ffn_up.shape[1:]
+    return weight_form(SelectedWeights(
+        sub_t=sub_t, cn2=cn2, table=table.contiguous(), wfold=wfold, w2=w2,
+        concat_b=p.concat_b.float().contiguous(), ffn_up=p.ffn_up, ffn_down=p.ffn_down,
+        out_proj=p.out_proj, De=De, Dh=Dh), dt, kernel)
 
 
 def _check_selected(spec: QincoSpec, x, xh, p, n_codes: int, vals) -> int:
@@ -346,10 +358,10 @@ def selected_scores_plain(
     ``(N·F_in, n_codes)`` float32: the squared distance ‖r − MLP − cand‖²
     of each candidate with its codeword id packed in."""
     F_in = _check_selected(spec, x, xh, p, n_codes, vals)
-    return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in, vals)
+    return _selected_scores_plain(spec, x, xh, selected_weights(spec, p), n_codes, F_in, vals)
 
 
-def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int, vals):
+def _selected_scores_plain(spec, x, xh, w: SelectedWeights, n_codes: int, F_in: int, vals):
     D = xh.shape[1]
     r = x.repeat_interleave(F_in, dim=0) - xh  # (NF, D) residual target
     if vals is None:
@@ -361,7 +373,7 @@ def _selected_scores_plain(spec, x, xh, w: _SelectedWeights, n_codes: int, F_in:
     return _score(spec, h, w.out_proj, r, tab[..., :D], ids)
 
 
-def _selected_h(spec, xh, w: _SelectedWeights, tab):
+def _selected_h(spec, xh, w: SelectedWeights, tab):
     """The step MLP's h after the FFN blocks for the fetched table rows
     ``tab (NF, A, Wt)`` of the beam rows ``xh``."""
     rnd = rounder(spec)
@@ -379,7 +391,7 @@ def selected_scores(
     (:func:`selected_scores_plain`, same contract) on a CPU tensor."""
     F_in = _check_selected(spec, x, xh, p, n_codes, vals)
     if xh.device.type == "cpu":
-        return _selected_scores_plain(spec, x, xh, _selected_weights(spec, p), n_codes, F_in,
+        return _selected_scores_plain(spec, x, xh, selected_weights(spec, p), n_codes, F_in,
                                       vals)
     return _selected_cuda(spec, x, xh, p, n_codes, F_in, vals)
 
@@ -390,9 +402,9 @@ def _selected_cuda(spec: QincoSpec, x, xh, p, n_codes: int, F_in: int, vals) -> 
     column passes read again (``kernels.refetch_bytes``)."""
     with tracing.span("kernels.selected_scores") as sp:
         _require_cuda(xh)
-        w = _selected_weights(spec, p, _selected_stream(spec))
-        plan = _selected_launch_plan(spec, xh, w, n_codes, vals is None)
-        refetch = selected_refetch_bytes(plan, n_codes, xh.shape[1], w.concat_b.shape[0],
+        w = selected_weights(spec, p, kernel=True)
+        plan = selected_launch_plan(spec, xh, w, n_codes, vals is None)
+        refetch = selected_refetch_bytes(plan, n_codes, xh.shape[1], w.De,
                                          wfold=w.wfold is not None, res=bool(_res(spec)))
         sp.set(tile_pairs=plan.tm, cluster=plan.cluster, d_passes=plan.d_passes,
                refetch_bytes=refetch)
@@ -400,46 +412,33 @@ def _selected_cuda(spec: QincoSpec, x, xh, p, n_codes: int, F_in: int, vals) -> 
         return _selected_launch(spec, x, xh, w, n_codes, F_in, vals, plan)
 
 
-def _selected_launch_plan(spec: QincoSpec, xh, w: _SelectedWeights, n_codes: int,
-                          topa: bool) -> LaunchPlan:
+def selected_launch_plan(spec: QincoSpec, xh, w: SelectedWeights, n_codes: int,
+                         topa: bool) -> LaunchPlan:
+    """:func:`selected_plan` of B2 on ``xh``'s card for the operands ``w``."""
     NF, D = xh.shape
-    K = w.table.shape[0]
-    De = w.concat_b.shape[0]
     stages = 1 + (w.wfold is not None) + 2 * spec.L + (w.out_proj is not None)
-    return selected_plan(NF, n_codes, D, K, De, spec.dh, bf16=bool(_is_bf16(spec)), topa=topa,
-                         stages=stages, sms=_sm_count(xh.device))
+    return selected_plan(NF, n_codes, D, w.table.shape[0], w.De, w.Dh, bf16=bool(_is_bf16(spec)),
+                         topa=topa, stages=stages, sms=sm_count(xh.device))
 
 
-def _selected_stream(spec: QincoSpec):
-    """The streamed weights' form in the kernel: the slab layout in bf16
-    (:func:`wg_blocked`, the cast in the same copy), the f32 blocked layout
-    otherwise."""
-    if _is_bf16(spec):
-        return lambda t: wg_blocked(t, torch.bfloat16)
-    return lambda t: blocked(t.float())
-
-
-def _selected_launch(spec: QincoSpec, x, xh, w: _SelectedWeights, n_codes: int, F_in: int,
+def _selected_launch(spec: QincoSpec, x, xh, w: SelectedWeights, n_codes: int, F_in: int,
                      vals, plan: LaunchPlan) -> torch.Tensor:
-    """Launch the selected-scores kernel on the device operands ``w`` (the
-    streamed weights in the kernel's form, :func:`_selected_stream`) with
-    ``plan``; returns the (NF, n_codes) output.  Counts the weight bytes a
-    bf16 launch streams (``kernels.weight_stream_bytes``)."""
+    """Launch the selected-scores kernel on the kernel-form operands ``w``
+    with ``plan``; returns the (NF, n_codes) output.  Counts the weight
+    bytes a bf16 launch streams (``kernels.weight_stream_bytes``)."""
     NF, D = xh.shape
     K, Wt = w.table.shape
-    De, Dh = w.concat_b.shape[0], spec.dh
     if _is_bf16(spec):
         tracing.count("kernels.weight_stream_bytes", selected_stream_bytes(
-            plan, n_codes, D, De, Dh, spec.L, wfold=w.wfold is not None,
+            plan, n_codes, D, w.De, w.Dh, spec.L, wfold=w.wfold is not None,
             proj=w.out_proj is not None))
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
     _launch("selected_scores", xh,
             [x.contiguous(), xh.contiguous(), None if vals is None else vals.contiguous(),
-             w.sub_t, w.cn2, w.table, w.wfold, w.w2, w.concat_b, w.ffn_up, w.ffn_down,
-             w.out_proj, out],
-            [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item, plan.blocks,
-             plan.smem, plan.cluster, d_pass_width(D, plan.d_passes), _is_bf16(spec),
-             _res(spec)])
+             *w.ptrs(), out],
+            [NF, F_in, D, K, w.De, w.Dh, spec.L, n_codes, Wt, plan.tm, plan.per_item,
+             plan.blocks, plan.smem, plan.cluster, d_pass_width(D, plan.d_passes),
+             _is_bf16(spec), _res(spec)])
     return out
 
 
@@ -448,7 +447,9 @@ def _selected_launch(spec: QincoSpec, x, xh, w: _SelectedWeights, n_codes: int, 
 # ---------------------------------------------------------------------------
 
 
-class _FusedWeights(NamedTuple):
+class FusedWeights(NamedTuple):
+    """B4's operands (:func:`fused_weights`; the shapes are the plain
+    form's) and their widths."""
     sub_t: torch.Tensor  # (D, K) f32
     cn2: torch.Tensor  # (K,) f32
     table: torch.Tensor  # (K, Wt) dt: the fused per-codeword table
@@ -461,9 +462,23 @@ class _FusedWeights(NamedTuple):
     off_h: int  # column of the h-init slice
     off_w1: int  # column of the W1 slice (== Wt: W1 folded into the h slice)
     off_up: int  # column of the folded first up-projection (0: not folded)
+    De: int
+    Dh: int
+    Wc: int  # the concat layer's width: De, or the low-rank factor's (padded) rank
+    layout: str  # the table's: fold_up, folded or low_rank (fused_plan)
+    has_in_proj: bool  # in_proj folded into the table (fused_plan)
+
+    STREAMED = ("w2", "concat_w2", "ffn_up", "ffn_down", "out_proj")
+    RANK_COLS = ("table", "w2")  # their last columns are the rank's (pad_rank)
+
+    def ptrs(self) -> list:
+        """The operands in the order of B4's C entry points
+        (``fused_substep_scores.cu``, ``fused_cuts.cu``)."""
+        return [self.sub_t, self.cn2, self.table, self.w2, self.concat_w2, self.concat_b,
+                self.ffn_up, self.ffn_down, self.out_proj]
 
 
-def _fused_weights(spec: QincoSpec, p) -> _FusedWeights:
+def fused_weights(spec: QincoSpec, p, kernel: bool = False) -> FusedWeights:
     """The operands of ``fused_substep_scores_pallas`` (:521-578): the
     table is built in f32 and rounded once to the compute dtype.
 
@@ -473,7 +488,8 @@ def _fused_weights(spec: QincoSpec, p) -> _FusedWeights:
       [C | C·W1] without in_proj;
 
     with cp = rnd(C)·rnd(P) (C itself without in_proj) and
-    h_cand = cp + rnd(cp)·rnd(W1)."""
+    h_cand = cp + rnd(cp)·rnd(W1).  The streamed weights in the plain
+    form, or with ``kernel`` in the kernel's (:func:`weight_form`)."""
     dt = _compute_dtype(spec)
     rnd = rounder(spec)
     D = spec.D
@@ -483,30 +499,36 @@ def _fused_weights(spec: QincoSpec, p) -> _FusedWeights:
     C = p.codebook.float()
     cp = _exact(rnd(C), rnd(P)) if P is not None else C
     cpw1 = _exact(rnd(cp), rnd(w1))
-    off_up = 0
+    off_up, layout = 0, "folded"
     if p.concat_w2 is None:
         h_cand = cp + cpw1
         pieces = [C, h_cand]
         off_h, off_w1 = D, D + h_w
         if spec.L >= 1 and spec.fold_up:
             pieces.append(_exact(rnd(h_cand), rnd(p.ffn_up[0])))
-            off_up = off_w1
+            off_up, layout = off_w1, "fold_up"
     else:
         pieces = [C] + ([cp] if P is not None else []) + [cpw1]
         off_h = D if P is not None else 0
         off_w1 = D + (h_w if P is not None else 0)
+        layout = "low_rank"
     sub_t, cn2 = _substep_operands(spec, p)
-    return _FusedWeights(
-        sub_t=sub_t, cn2=cn2,
-        table=torch.cat(pieces, dim=1).to(dt).contiguous(),
-        w2=w2.to(dt).contiguous(),
-        concat_w2=None if p.concat_w2 is None else p.concat_w2.to(dt).contiguous(),
-        concat_b=p.concat_b.float().contiguous(),
-        ffn_up=p.ffn_up.to(dt).contiguous(),
-        ffn_down=p.ffn_down.to(dt).contiguous(),
-        out_proj=None if p.out_proj is None else p.out_proj.to(dt).contiguous(),
-        off_h=off_h, off_w1=off_w1, off_up=off_up,
-    )
+    De, Dh = p.ffn_up.shape[1:]
+    return weight_form(FusedWeights(
+        sub_t=sub_t, cn2=cn2, table=torch.cat(pieces, dim=1).to(dt).contiguous(), w2=w2,
+        concat_w2=p.concat_w2, concat_b=p.concat_b.float().contiguous(), ffn_up=p.ffn_up,
+        ffn_down=p.ffn_down, out_proj=p.out_proj, off_h=off_h, off_w1=off_w1, off_up=off_up,
+        De=De, Dh=Dh, Wc=w2.shape[1], layout=layout, has_in_proj=P is not None), dt, kernel)
+
+
+def folded_weights(spec: QincoSpec, p, table, w2, ffn_up, ffn_down, out_proj) -> FusedWeights:
+    """B4's kernel-form operands in the folded layout (h slice at column D,
+    no low-rank factor, a zero bias) over given ones: breakdown's stand-ins."""
+    De, Dh = ffn_up.shape[1:]
+    return weight_form(FusedWeights(
+        *_substep_operands(spec, p), table, w2, None, torch.zeros(De, device=table.device),
+        ffn_up, ffn_down, out_proj, off_h=spec.D, off_w1=spec.D + De, off_up=0, De=De, Dh=Dh,
+        Wc=De, layout="folded", has_in_proj=False), _compute_dtype(spec), kernel=True)
 
 
 def _check_fused(spec: QincoSpec, x, xh, p, n_codes: int) -> int:
@@ -529,10 +551,10 @@ def fused_substep_scores_plain(
     the fused table, with its id packed in.  ``spec.perbin`` selects a
     TPU layout of the same function and has no effect here."""
     F_in = _check_fused(spec, x, xh, p, n_codes)
-    return _fused_substep_plain(spec, x, xh, _fused_weights(spec, p), n_codes, F_in)
+    return _fused_substep_plain(spec, x, xh, fused_weights(spec, p), n_codes, F_in)
 
 
-def _fused_substep_plain(spec, x, xh, w: _FusedWeights, n_codes: int, F_in: int):
+def _fused_substep_plain(spec, x, xh, w: FusedWeights, n_codes: int, F_in: int):
     rnd = rounder(spec)
     NF, D = xh.shape
     K, Wt = w.table.shape
@@ -568,63 +590,37 @@ def fused_substep_scores(
     (:func:`fused_substep_scores_plain`, same contract) on a CPU tensor."""
     F_in = _check_fused(spec, x, xh, p, n_codes)
     if xh.device.type == "cpu":
-        return _fused_substep_plain(spec, x, xh, _fused_weights(spec, p), n_codes, F_in)
+        return _fused_substep_plain(spec, x, xh, fused_weights(spec, p), n_codes, F_in)
     with tracing.span("kernels.fused_substep_scores"):
         _require_cuda(xh)
-        w = _fused_weights(spec, p)
-        if _is_bf16(spec):
-            w = _pad_fused_rank(w)
-        plan = _fused_launch_plan(spec, xh, w, n_codes, p.in_proj is not None)
+        w = fused_weights(spec, p, kernel=True)
+        plan = fused_launch_plan(spec, xh, w, n_codes)
         return _fused_launch(spec, x, xh, w, n_codes, F_in, plan)
 
 
-def _fused_layout(w: _FusedWeights) -> str:
-    return "fold_up" if w.off_up else "low_rank" if w.concat_w2 is not None else "folded"
-
-
-def _fused_launch_plan(spec: QincoSpec, xh, w: _FusedWeights, n_codes: int,
-                       in_proj: bool) -> LaunchPlan:
+def fused_launch_plan(spec: QincoSpec, xh, w: FusedWeights, n_codes: int) -> LaunchPlan:
+    """:func:`fused_plan` of B4 on ``xh``'s card for the operands ``w``."""
     NF, D = xh.shape
-    K = w.table.shape[0]
-    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
-    layout, L = _fused_layout(w), spec.L
+    L = spec.L
     # W2 (and U_0) once per item, then the per-tile products, [out_proj]
     stages = {"fold_up": 2 + 1 + 2 * (L - 1), "low_rank": 1 + 1 + 2 * L,
-              "folded": 1 + 2 * L}[layout] + (w.out_proj is not None)
-    return fused_plan(NF, n_codes, D, K, De, Dh, Wc, bf16=bool(_is_bf16(spec)), layout=layout,
-                      in_proj=in_proj, stages=stages, sms=_sm_count(xh.device))
+              "folded": 1 + 2 * L}[w.layout] + (w.out_proj is not None)
+    return fused_plan(NF, n_codes, D, w.table.shape[0], w.De, w.Dh, w.Wc,
+                      bf16=bool(_is_bf16(spec)), layout=w.layout, in_proj=w.has_in_proj,
+                      stages=stages, sms=sm_count(xh.device))
 
 
-def _fused_launch(spec: QincoSpec, x, xh, w: _FusedWeights, n_codes: int, F_in: int,
+def _fused_launch(spec: QincoSpec, x, xh, w: FusedWeights, n_codes: int, F_in: int,
                   plan: LaunchPlan) -> torch.Tensor:
-    """Launch the fused-substep kernel on the device operands ``w`` with
-    ``plan``; returns the (NF, n_codes) output."""
+    """Launch the fused-substep kernel on the kernel-form operands ``w``
+    with ``plan``; returns the (NF, n_codes) output."""
     NF, D = xh.shape
     K, Wt = w.table.shape
-    Wc, De, Dh = w.w2.shape[1], w.ffn_up.shape[1], w.ffn_up.shape[2]
-    if not _is_bf16(spec):
-        w = w._replace(**{f: blocked(getattr(w, f))
-                          for f in ("w2", "concat_w2", "ffn_up", "ffn_down", "out_proj")})
     out = torch.empty((NF, n_codes), dtype=torch.float32, device=xh.device)
-    _launch("fused_substep_scores", xh,
-            [x.contiguous(), xh.contiguous(), w.sub_t, w.cn2, w.table, w.w2, w.concat_w2,
-             w.concat_b, w.ffn_up, w.ffn_down, w.out_proj, out],
-            [NF, F_in, D, K, De, Dh, spec.L, n_codes, Wt, Wc, w.off_h, w.off_w1, w.off_up,
+    _launch("fused_substep_scores", xh, [x.contiguous(), xh.contiguous(), *w.ptrs(), out],
+            [NF, F_in, D, K, w.De, w.Dh, spec.L, n_codes, Wt, w.Wc, w.off_h, w.off_w1, w.off_up,
              plan.tm, plan.per_item, plan.blocks, plan.smem, _is_bf16(spec), _res(spec)])
     return out
-
-
-def _pad_fused_rank(w: _FusedWeights) -> _FusedWeights:
-    """The fused operands with the low-rank factor's rank padded with zeros
-    to a multiple of 16 (as :func:`pad_rank`): zero columns at the end of
-    the table (its W1 slice is the last) and of w2, zero rows of
-    concat_w2; the function is unchanged."""
-    if w.concat_w2 is None or not w.w2.shape[1] % _MMA_WIDTH:
-        return w
-    pad = -w.w2.shape[1] % _MMA_WIDTH
-    return w._replace(table=F.pad(w.table, (0, pad)).contiguous(),
-                      w2=F.pad(w.w2, (0, pad)).contiguous(),
-                      concat_w2=F.pad(w.concat_w2, (0, 0, 0, pad)).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +628,9 @@ def _pad_fused_rank(w: _FusedWeights) -> _FusedWeights:
 # ---------------------------------------------------------------------------
 
 
-class _ChainWeights(NamedTuple):
+class ChainWeights(NamedTuple):
+    """The unfolded step MLP's operands (:func:`chain_weights`; the shapes
+    are the plain form's) and their widths."""
     in_proj: Optional[torch.Tensor]  # (D, De) dt
     concat_w: torch.Tensor  # (De + D, Wc) dt
     concat_w2: Optional[torch.Tensor]  # (Wc, De) dt
@@ -640,29 +638,65 @@ class _ChainWeights(NamedTuple):
     ffn_up: torch.Tensor  # (L, De, Dh) dt
     ffn_down: torch.Tensor  # (L, Dh, De) dt
     out_proj: Optional[torch.Tensor]  # (De, D) dt
+    De: int
+    Dh: int
+    Wc: int  # the concat layer's width: De, or the low-rank factor's (padded) rank
+    low_rank: bool
+
+    STREAMED = ("in_proj", "concat_w", "concat_w2", "ffn_up", "ffn_down", "out_proj")
+    RANK_COLS = ("concat_w",)
+
+    def ptrs(self) -> list:
+        """The weights in the order of B3's and B5's C entry points."""
+        return [self.in_proj, self.concat_w, self.concat_w2, self.concat_b, self.ffn_up,
+                self.ffn_down, self.out_proj]
 
 
-def _chain_weights(spec: QincoSpec, p) -> _ChainWeights:
-    dt = _compute_dtype(spec)
-
-    def cast(a):
-        return None if a is None else a.to(dt).contiguous()
-
-    return _ChainWeights(cast(p.in_proj), cast(p.concat_w), cast(p.concat_w2),
-                         p.concat_b.float().contiguous(), cast(p.ffn_up), cast(p.ffn_down),
-                         cast(p.out_proj))
-
-
-def _chain_dims(spec: QincoSpec, w: _ChainWeights):
-    """(De, Dh, Wc, the low-rank scratch width) of the chain weights,
-    checked for the kernels' 4-wide loads."""
-    De, Dh, Wc = w.ffn_up.shape[1], w.ffn_up.shape[2], w.concat_w.shape[1]
-    _check_widths(D=spec.D, De=De, Dh=Dh, Wc=Wc)
-    return De, Dh, Wc, (Wc if w.concat_w2 is not None else 0)
+def chain_weights(spec: QincoSpec, p, kernel: bool = False) -> ChainWeights:
+    """The step's weights for B3 and B5, in the plain form or with
+    ``kernel`` in the kernel's (:func:`weight_form`)."""
+    De, Dh = p.ffn_up.shape[1:]
+    return weight_form(ChainWeights(
+        p.in_proj, p.concat_w, p.concat_w2, p.concat_b.float().contiguous(), p.ffn_up,
+        p.ffn_down, p.out_proj, De=De, Dh=Dh, Wc=p.concat_w.shape[1],
+        low_rank=p.concat_w2 is not None), _compute_dtype(spec), kernel)
 
 
-def _chain_ptrs(w: _ChainWeights):
-    return [w.in_proj, w.concat_w, w.concat_w2, w.concat_b, w.ffn_up, w.ffn_down, w.out_proj]
+_Weights = TypeVar("_Weights", SelectedWeights, FusedWeights, ChainWeights)
+
+
+def weight_form(w: _Weights, dt: torch.dtype, kernel: bool) -> _Weights:
+    """The one place that decides the form of a step's streamed weights
+    (``w.STREAMED``), from the kernel family (the tuple's type) and ``dt``.
+    Plain: each cast to ``dt``, row-major.  Kernel, under bfloat16: B2's in
+    the slab layout of :func:`wg_blocked`, cast in the same copy; B3's,
+    B4's and B5's row-major, the low-rank rank padded (:func:`pad_rank`).
+    Kernel, under float32: every kernel's in :func:`blocked`'s layout."""
+    if not kernel:
+        lay = lambda t: t.to(dt).contiguous()
+    elif dt == torch.float32:
+        lay = lambda t: blocked(t.to(dt))
+    elif isinstance(w, SelectedWeights):
+        lay = lambda t: wg_blocked(t, dt)
+    else:
+        return pad_rank(weight_form(w, dt, kernel=False))
+    return w._replace(**{f: None if getattr(w, f) is None else lay(getattr(w, f))
+                         for f in w.STREAMED})
+
+
+def pad_rank(w: _Weights) -> _Weights:
+    """B4's or the chain's operands with the low-rank factor's rank padded
+    with zeros to a multiple of 16, the tensor cores' tile: zero columns at
+    the end of each of ``w.RANK_COLS`` (the chain's concat_w; B4's w2 and
+    table, whose W1 slice is the last), zero rows of concat_w2.  The zero
+    columns give products of exactly 0, which the zero rows then add, so the
+    function is unchanged."""
+    if w.concat_w2 is None or not w.Wc % _MMA_WIDTH:
+        return w
+    pad = -w.Wc % _MMA_WIDTH
+    cols = {f: F.pad(getattr(w, f), (0, pad)).contiguous() for f in w.RANK_COLS}
+    return w._replace(**cols, concat_w2=F.pad(w.concat_w2, (0, 0, 0, pad)).contiguous(),
+                      Wc=w.Wc + pad)
 
 
 # ---------------------------------------------------------------------------
@@ -715,41 +749,36 @@ def candidate_scores(
     _check_candidate(spec, x, xh, idx, p, pack_ids)
     with tracing.span("kernels.candidate_scores"):
         _require_cuda(xh)
-        w = _chain_weights(spec, p)
-        if _is_bf16(spec):
-            w = pad_rank(w)
+        w = chain_weights(spec, p, kernel=True)
         book = p.codebook.to(_compute_dtype(spec)).contiguous()
-        plan = _candidate_launch_plan(spec, xh, idx, w)
+        plan = candidate_launch_plan(spec, xh, idx, w)
         return _candidate_launch(spec, x, xh, idx, book, w, pack_ids, plan)
 
 
-def _candidate_launch_plan(spec: QincoSpec, xh, idx, w: _ChainWeights) -> LaunchPlan:
-    De, Dh, Wc, lr = _chain_dims(spec, w)
+def candidate_launch_plan(spec: QincoSpec, xh, idx, w: ChainWeights) -> LaunchPlan:
+    """:func:`candidate_plan` of B5 on ``xh``'s card for the ids ``idx`` and
+    the operands ``w``."""
     NF, A = idx.shape
     # the condition half once per item, then [in_proj], the codeword half,
     # [concat_w2], the FFN blocks, [out_proj] per tile
-    stages = (1 + (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L
+    stages = (1 + (w.in_proj is not None) + 1 + w.low_rank + 2 * spec.L
               + (w.out_proj is not None))
-    return candidate_plan(NF, A, spec.D, De, Dh, Wc, bf16=bool(_is_bf16(spec)),
-                          in_proj=w.in_proj is not None, low_rank=bool(lr), stages=stages,
-                          sms=_sm_count(xh.device))
+    return candidate_plan(NF, A, spec.D, w.De, w.Dh, w.Wc, bf16=bool(_is_bf16(spec)),
+                          in_proj=w.in_proj is not None, low_rank=w.low_rank, stages=stages,
+                          sms=sm_count(xh.device))
 
 
-def _candidate_launch(spec: QincoSpec, x, xh, idx, book, w: _ChainWeights, pack_ids: bool,
+def _candidate_launch(spec: QincoSpec, x, xh, idx, book, w: ChainWeights, pack_ids: bool,
                       plan: LaunchPlan) -> torch.Tensor:
-    """Launch the candidate-scores kernel on the device operands (``book``
-    the (K, D) codebook in the compute dtype) with ``plan``; returns the
-    (NF, A) output."""
-    De, Dh, Wc, _ = _chain_dims(spec, w)
+    """Launch the candidate-scores kernel on the kernel-form operands
+    (``book`` the (K, D) codebook in the compute dtype) with ``plan``;
+    returns the (NF, A) output."""
     NF, A = idx.shape
-    if not _is_bf16(spec):
-        w = w._replace(**{f: blocked(getattr(w, f)) for f in ("in_proj", "concat_w", "concat_w2",
-                                                              "ffn_up", "ffn_down", "out_proj")})
     out = torch.empty((NF, A), dtype=torch.float32, device=xh.device)
     _launch("candidate_scores", xh,
             [x.contiguous(), xh.contiguous(), idx.to(torch.int32).contiguous(), book,
-             *_chain_ptrs(w), out],
-            [NF, A, spec.D, book.shape[0], De, Dh, spec.L, Wc, int(pack_ids), plan.tm,
+             *w.ptrs(), out],
+            [NF, A, spec.D, book.shape[0], w.De, w.Dh, spec.L, w.Wc, int(pack_ids), plan.tm,
              plan.per_item, plan.blocks, plan.smem, _is_bf16(spec), _res(spec)])
     return out
 
@@ -829,29 +858,24 @@ def _rebuild_cuda(spec: QincoSpec, dists, xh, p, A_eff: int, F_out: int, F_in: i
     with tracing.span("kernels.select_rebuild") as sp:
         _require_cuda(xh)
         bf16 = bool(_is_bf16(spec))
-        w = _chain_weights(spec, p)
-        if bf16:
-            w = pad_rank(w)
-        De, Dh, Wc, lr = _chain_dims(spec, w)
+        w = chain_weights(spec, p, kernel=True)
         N, C = dists.shape
         D, K = spec.D, p.codebook.shape[0]
-        stages = (w.in_proj is not None) + 1 + bool(lr) + 2 * spec.L + (w.out_proj is not None)
-        plan = rebuild_plan(N, C, F_out, D, De, Dh, Wc, bf16=bf16, low_rank=bool(lr),
-                            stages=stages, sms=_sm_count(xh.device))
-        refetch = rebuild_refetch_bytes(plan, F_out, D, De, Wc, in_proj=w.in_proj is not None)
+        stages = (w.in_proj is not None) + 1 + w.low_rank + 2 * spec.L + (w.out_proj is not None)
+        plan = rebuild_plan(N, C, F_out, D, w.De, w.Dh, w.Wc, bf16=bf16, low_rank=w.low_rank,
+                            stages=stages, sms=sm_count(xh.device))
+        refetch = rebuild_refetch_bytes(plan, F_out, D, w.De, w.Wc, in_proj=w.in_proj is not None)
         sp.set(d_passes=plan.d_passes, refetch_bytes=refetch)
         tracing.count("kernels.refetch_bytes", refetch)
-        if not bf16:
-            w = w._replace(**{f: blocked(getattr(w, f)) for f in (
-                "in_proj", "concat_w", "concat_w2", "ffn_up", "ffn_down", "out_proj")})
         xhat = torch.empty((N, F_out, D), dtype=torch.float32, device=xh.device)
         codes = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
         parents = torch.empty((N, F_out), dtype=torch.int32, device=xh.device)
         _launch("select_rebuild", xh,
                 [dists.contiguous(), xh.contiguous(), p.codebook.float().contiguous(),
-                 *_chain_ptrs(w), xhat, codes, parents],
-                [N, C, A_eff, F_in, F_out, D, K, De, Dh, spec.L, Wc, plan.tm, plan.per_item,
-                 plan.blocks, plan.smem, d_pass_width(D, plan.d_passes), int(bf16), _res(spec)])
+                 *w.ptrs(), xhat, codes, parents],
+                [N, C, A_eff, F_in, F_out, D, K, w.De, w.Dh, spec.L, w.Wc, plan.tm,
+                 plan.per_item, plan.blocks, plan.smem, d_pass_width(D, plan.d_passes),
+                 int(bf16), _res(spec)])
         return xhat, codes, parents
 
 
@@ -865,18 +889,6 @@ def blocked(w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     pad = -w.shape[-1] % _F32_PASS
     b = F.pad(w, (0, pad)).unflatten(-1, (-1, _F32_PASS))  # (..., kin, passes, 128)
     return b.transpose(-3, -2).contiguous()
-
-
-def pad_rank(w: _ChainWeights) -> _ChainWeights:
-    """The chain weights with the low-rank factor's rank padded with zeros
-    to a multiple of 16, the tensor cores' tile: the zero columns of
-    concat_w give products of exactly 0, which the zero rows of concat_w2
-    then add, so the function is unchanged."""
-    if w.concat_w2 is None or not w.concat_w.shape[1] % _MMA_WIDTH:
-        return w
-    pad = -w.concat_w.shape[1] % _MMA_WIDTH
-    return w._replace(concat_w=F.pad(w.concat_w, (0, pad)).contiguous(),
-                      concat_w2=F.pad(w.concat_w2, (0, 0, 0, pad)).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -1360,7 +1372,7 @@ def nearest(x: torch.Tensor, book: torch.Tensor) -> tuple[torch.Tensor, torch.Te
         x, book = F.pad(x, (0, pad)), F.pad(book, (0, pad))
     x, book = x.contiguous(), book.contiguous()
     (N, D), K = x.shape, book.shape[0]
-    splits = nearest_plan(N, K, _sm_count(x.device))
+    splits = nearest_plan(N, K, sm_count(x.device))
     part_d = torch.empty((splits, N), dtype=torch.float32, device=x.device)
     part_i = torch.empty((splits, N), dtype=torch.int64, device=x.device)
     if splits == 1:
@@ -1394,7 +1406,8 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"kernels run on CUDA tensors (or the CPU plain versions), got {t.device}")
 
 
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device``'s card, the plans' ``sms``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

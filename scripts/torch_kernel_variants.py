@@ -227,7 +227,7 @@ class Case:
         stages = 2 + 2 * SPEC.L + 1  # B2' under the script's spec: W2, wfold, the FFN, out_proj
         return kernels.selected_plan(len(xh), A, SPEC.D, SPEC.K, SPEC.De, SPEC.dh, bf16=True,
                                      topa=False, stages=stages,
-                                     sms=kernels._sm_count(xh.device)).per_item
+                                     sms=kernels.sm_count(xh.device)).per_item
 
 
 def sg_check(n: int, device, seed: int) -> dict:

@@ -95,7 +95,7 @@ def rows_of(variant: str, xh, p, rows):
     if variant == "production":
         return kernels.selected_plan(xh.shape[0], SPEC.A, SPEC.D, SPEC.K, SPEC.De, SPEC.dh,
                                      bf16=True, topa=True, stages=2 + 2 * SPEC.L,
-                                     sms=kernels._sm_count(xh.device)).per_item
+                                     sms=kernels.sm_count(xh.device)).per_item
     return breakdown.ktopa_plan(SPEC, xh, p, SPEC.A, rows).per_item
 
 

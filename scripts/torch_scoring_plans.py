@@ -69,13 +69,11 @@ def sweep(name, shape, default, smem_of, n_rows, launch) -> None:
 
 def fused(shape, spec, F_in, A, device) -> None:
     p, x, xh = step_inputs(spec, 1024, F_in, 0, device)
-    w = kernels._pad_fused_rank(kernels._fused_weights(spec, p))
-    in_proj = p.in_proj is not None
-    default = kernels._fused_launch_plan(spec, xh, w, A, in_proj)
-    D, De, Dh, Wc = spec.D, w.ffn_up.shape[1], w.ffn_up.shape[2], w.w2.shape[1]
+    w = kernels.fused_weights(spec, p, kernel=True)
+    default = kernels.fused_launch_plan(spec, xh, w, A)
     sweep("fused_substep_scores", shape, default,
-          lambda R, tm: kernels._fused_mma_smem(R, tm, A, D, spec.K, De, Dh, Wc,
-                                                kernels._fused_layout(w), in_proj),
+          lambda R, tm: kernels._fused_mma_smem(R, tm, A, spec.D, spec.K, w.De, w.Dh, w.Wc,
+                                                w.layout, w.has_in_proj),
           xh.shape[0], lambda plan: kernels._fused_launch(spec, x, xh, w, A, F_in, plan))
 
 
@@ -85,13 +83,12 @@ def candidate(shape, spec, F_in, A, device) -> None:
     g = torch.Generator(device=device).manual_seed(3)
     idx = torch.randint(0, spec.K, (xh.shape[0], A), generator=g, device=device,
                         dtype=torch.int32)
-    w = kernels.pad_rank(kernels._chain_weights(spec, p))
+    w = kernels.chain_weights(spec, p, kernel=True)
     book = p.codebook.to(torch.bfloat16).contiguous()
-    default = kernels._candidate_launch_plan(spec, xh, idx, w)
-    De, Dh, Wc, lr = kernels._chain_dims(spec, w)
+    default = kernels.candidate_launch_plan(spec, xh, idx, w)
     sweep("candidate_scores", shape, default,
-          lambda R, tm: kernels._candidate_mma_smem(R, tm, A, spec.D, De, Dh, Wc,
-                                                    w.in_proj is not None, bool(lr)),
+          lambda R, tm: kernels._candidate_mma_smem(R, tm, A, spec.D, w.De, w.Dh, w.Wc,
+                                                    w.in_proj is not None, w.low_rank),
           xh.shape[0],
           lambda plan: kernels._candidate_launch(spec, x_f, xh, idx, book, w, spec.K <= 256,
                                                  plan))

@@ -206,7 +206,7 @@ def fused_case():
 def _sel_checks(ts, x, xh, p, got, want):
     """ids equal wherever the bin's two least values are > 1e-3 apart; the
     values within rtol 1e-4 where the ids agree."""
-    w = kernels._fused_weights(ts, p)
+    w = kernels.fused_weights(ts, p)
     packed = kernels._substep_packed(ts, x.repeat_interleave(ts.B, 0) - xh, w.sub_t, w.cn2)
     two = np.sort(_unpacked(packed.numpy()).reshape(len(got), ts.A, -1), axis=2)[..., :2]
     distinct = two[..., 1] - two[..., 0] > 1e-3

@@ -125,7 +125,7 @@ B2_RAGGED = {"S": CASES["S"][0], "L": CASES["L"][0]}
 def test_selected_scores_ragged_items_and_clusters(cuda, case, route):
     spec, p = _step(B2_RAGGED[case], "bfloat16", seed=11, device=cuda)
     x, xh = _inputs(spec, 1, N=1001, seed=12, device=cuda)
-    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), 32,
+    plan = kernels.selected_launch_plan(spec, xh, kernels.selected_weights(spec, p), 32,
                                          route == "topa")
     assert xh.shape[0] % plan.per_item and plan.items % plan.cluster
     vals = _external_vals(spec, p, x, xh, 1, 32) if route == "vals" else None
@@ -143,7 +143,7 @@ def test_selected_scores_largest_plan_launches_clean(cuda):
     without a fault."""
     spec, p = _step(CASES["L"][0], "bfloat16", seed=13, device=cuda)
     x, xh = _inputs(spec, 32, N=1024, seed=14, device=cuda)
-    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), 16, True)
+    plan = kernels.selected_launch_plan(spec, xh, kernels.selected_weights(spec, p), 16, True)
     assert plan.smem > 224 * 1024 and plan.cluster > 1
     got = kernels.selected_scores(spec, x, xh, p, 16)
     torch.cuda.synchronize()
@@ -260,7 +260,7 @@ def test_fused_cut_kernel_matches_plain(cuda, cut, case):
     sel_p = breakdown.fused_cut_plain(spec, x, xh, p, n_codes, "sel")
     # the bin minima are f32 sums in another order: ids equal wherever the
     # bin's two least values are more than 1e-3 apart
-    w = kernels._fused_weights(spec, p)
+    w = kernels.fused_weights(spec, p)
     packed = kernels._substep_packed(spec, x.repeat_interleave(F_in, 0) - xh, w.sub_t, w.cn2)
     two = _unpacked(packed).view(len(xh), n_codes, -1).sort(dim=2).values[..., :2]
     same = kernels.unpack_ids(sel) == kernels.unpack_ids(sel_p)
@@ -296,7 +296,7 @@ def test_fused_cut_variant_kernel_matches_plain(cuda, cut, case):
     assert kernels.LAUNCHES[key] == before + 1
     want = breakdown.fused_cut_plain(spec, x, xh, p, n_codes, cut)
     if cut == "dsub":
-        w = kernels._fused_weights(spec, p)
+        w = kernels.fused_weights(spec, p)
         packed = kernels._substep_packed(spec, x.repeat_interleave(F_in, 0) - xh, w.sub_t, w.cn2)
         _close_sums(got, want, _unpacked(packed).abs().view(len(xh), n_codes, -1).sum(2))
     elif cut == "mlponly":
@@ -1003,7 +1003,7 @@ def test_selected_scores_wide_rows_match_plain_and_exact(cuda, case, route, step
     N, F_in, A = WIDE_STEPS[step]
     spec, p = _step(WIDE[case], "bfloat16", seed=21, device=cuda)
     x, xh = _inputs(spec, F_in, N=N, seed=22, device=cuda)
-    plan = kernels._selected_launch_plan(spec, xh, kernels._selected_weights(spec, p), A,
+    plan = kernels.selected_launch_plan(spec, xh, kernels.selected_weights(spec, p), A,
                                          route == "topa")
     assert (plan.d_passes > 1) == WIDE_PASSED[case][0]
     assert step == "step" or xh.shape[0] % plan.per_item
@@ -1027,7 +1027,7 @@ def test_select_rebuild_wide_rows_match_plain_and_exact(cuda, case):
     dists = kernels.selected_scores_plain(spec, x, xh, p, 16).reshape(301, 32 * 16)
     dists[:, 16:32] = dists[:, :16]  # ties: beam 1 repeats beam 0's packed values
     plan = kernels.rebuild_plan(301, 512, 32, spec.D, spec.De, spec.dh, spec.De, bf16=True,
-                                low_rank=False, stages=3 + 2 * spec.L, sms=kernels._sm_count(cuda))
+                                low_rank=False, stages=3 + 2 * spec.L, sms=kernels.sm_count(cuda))
     assert (plan.d_passes > 1) == WIDE_PASSED[case][1] and 301 % plan.per_item
     xhat, codes, parents = kernels.select_rebuild(spec, dists, xh, p, 16, 32)
     torch.cuda.synchronize()

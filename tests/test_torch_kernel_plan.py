@@ -224,32 +224,125 @@ def test_plans_raise_on_too_many_products():
                              stages=65)
 
 
-@pytest.mark.parametrize("rank", [8, 16, 20])
-def test_pad_rank_round_trip(rank):
-    """The tensor-core route pads the low-rank factor's rank to a multiple
-    of 16 with zeros: the original weights come back out of the padded
-    ones, and the low-rank product is unchanged."""
+def _low_rank_step(rank: int, kind: str):
+    """A bf16 spec with a low-rank concat factor of ``rank`` (B4's for
+    ``kind`` fused) and a step's weights with random factors."""
     spec = QincoSpec(D=32, K=64, M=2, L=1, de=48, dh=64, A=8, B=8, concat_rank=rank,
-                     compute_dtype="bfloat16")
+                     fused_substep=kind == "fused", compute_dtype="bfloat16")
     g = torch.Generator().manual_seed(0)
     p = init_params(spec, g, device="cpu").step(0)
-    p = p._replace(concat_w2=torch.randn(p.concat_w2.shape, generator=g))
-    w = kernels._chain_weights(spec, p)
+    return spec, p._replace(concat_w=torch.randn(p.concat_w.shape, generator=g),
+                            concat_w2=torch.randn(p.concat_w2.shape, generator=g))
+
+
+@pytest.mark.parametrize("rank", [8, 16, 20])
+@pytest.mark.parametrize("kind", ["chain", "fused"])
+def test_pad_rank_round_trip(kind, rank):
+    """The tensor-core routes pad the low-rank factor's rank to a multiple
+    of 16 with zeros: zero columns at the end of the chain's concat_w, or
+    of B4's w2 and table (its W1 slice), zero rows of concat_w2.  A rank
+    already a multiple of 16 gives the operands back uncopied.  The
+    original operands come back out of the padded ones, the rest is the
+    same, and the low-rank product is unchanged."""
+    spec, p = _low_rank_step(rank, kind)
+    if kind == "chain":
+        w = kernels.chain_weights(spec, p)
+        cols, rest = ("concat_w",), ("in_proj", "concat_b", "ffn_up", "ffn_down", "out_proj")
+    else:
+        w = kernels.fused_weights(spec, p)
+        cols, rest = ("table", "w2"), ("sub_t", "cn2", "concat_b", "ffn_up", "ffn_down",
+                                       "out_proj", "off_h", "off_w1", "off_up", "layout")
     padded = kernels.pad_rank(w)
-    width = -(-rank // 16) * 16
-    assert padded.concat_w.shape == (w.concat_w.shape[0], width)
-    assert padded.concat_w2.shape == (width, w.concat_w2.shape[1])
-    assert torch.equal(padded.concat_w[:, :rank], w.concat_w)
+    pad = -rank % 16
+    if pad == 0:
+        assert padded is w  # a rank already a multiple of 16: no copy
+    assert padded.Wc == rank + pad and (padded.De, padded.Dh) == (w.De, w.Dh)
+    for name in cols:
+        a, b = getattr(w, name), getattr(padded, name)
+        assert b.shape == (a.shape[0], a.shape[1] + pad)
+        assert torch.equal(b[:, :a.shape[1]], a) and not b[:, a.shape[1]:].any()
+    assert padded.concat_w2.shape == (rank + pad, w.concat_w2.shape[1])
     assert torch.equal(padded.concat_w2[:rank], w.concat_w2)
-    assert not padded.concat_w[:, rank:].any() and not padded.concat_w2[rank:].any()
-    for name in ("in_proj", "concat_b", "ffn_up", "ffn_down", "out_proj"):
+    assert not padded.concat_w2[rank:].any()
+    for name in rest:
         assert getattr(padded, name) is getattr(w, name)
-    cat = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.concat_w.shape[0])))
-    want = (cat @ w.concat_w.double()) @ w.concat_w2.double()
-    got = (cat @ padded.concat_w.double()) @ padded.concat_w2.double()
+    if kind == "chain":
+        cat = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.concat_w.shape[0])))
+        want = (cat @ w.concat_w.double()) @ w.concat_w2.double()
+        got = (cat @ padded.concat_w.double()) @ padded.concat_w2.double()
+    else:
+        lr = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.w2.shape[0])))
+        t_w1 = w.table[:5, w.off_w1:].double()
+        want = (t_w1 + lr @ w.w2.double()) @ w.concat_w2.double()
+        got = (padded.table[:5, w.off_w1:].double() + lr @ padded.w2.double()) @ (
+            padded.concat_w2.double())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    if rank % 16 == 0:
-        assert padded is w
+
+
+# Each builder's streamed weights (what the kernel-form step lays out).
+STREAMED = {
+    "selected": ("wfold", "w2", "ffn_up", "ffn_down", "out_proj"),
+    "fused": ("w2", "concat_w2", "ffn_up", "ffn_down", "out_proj"),
+    "chain": ("in_proj", "concat_w", "concat_w2", "ffn_up", "ffn_down", "out_proj"),
+}
+BUILDERS = {"selected": kernels.selected_weights, "fused": kernels.fused_weights,
+            "chain": kernels.chain_weights}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind,rank", [("selected", None), ("fused", None), ("fused", 20),
+                                       ("chain", None), ("chain", 20)],
+                         ids=["selected", "fused", "fused-rank20", "chain", "chain-rank20"])
+def test_kernel_form_is_what_the_kernels_read(kind, rank, dtype):
+    """Each builder's kernel form, field for field and bit for bit, against
+    the operands composed by hand from the plain form: under bf16 B2's
+    streamed weights ``wg_blocked(f32 weight, bf16)``, B3's, B4's and B5's
+    the bf16 ones with a low-rank factor's rank padded to 16; under f32
+    ``blocked(f32 weight)``; every other field the plain form's.  The width
+    fields are those of the weights before any layout."""
+    spec = QincoSpec(D=32, K=64, M=2, L=2, de=48, dh=64, A=8, B=8, fast=True,
+                     fused_substep=kind == "fused", concat_rank=rank, compute_dtype=dtype)
+    g = torch.Generator().manual_seed(1)
+    p = init_params(spec, g, device="cpu").step(0)
+    p = p._replace(**{f: torch.randn(getattr(p, f).shape, generator=g) for f in (
+        "concat_w", "concat_w2", "concat_b") if getattr(p, f) is not None})
+    build = BUILDERS[kind]
+    got, plain = build(spec, p, kernel=True), build(spec, p)
+    f32 = build(spec.with_(compute_dtype="float32"), p)  # the f32 weights, unlaid out
+    bf16 = dtype == "bfloat16"
+    pad = -rank % 16 if rank and bf16 and kind != "selected" else 0
+    want = {}
+    for name in STREAMED[kind]:
+        if getattr(plain, name) is None:
+            want[name] = None
+        elif not bf16:
+            want[name] = kernels.blocked(getattr(f32, name))
+        elif kind == "selected":
+            want[name] = kernels.wg_blocked(getattr(f32, name), torch.bfloat16)
+        else:
+            want[name] = getattr(plain, name)
+    if pad:
+        for name in ("table", "w2") if kind == "fused" else ("concat_w",):
+            want[name] = torch.nn.functional.pad(getattr(plain, name), (0, pad))
+        want["concat_w2"] = torch.nn.functional.pad(plain.concat_w2, (0, 0, 0, pad))
+    for name in got._fields:
+        a, b = getattr(got, name), want.get(name, getattr(plain, name))
+        if name == "Wc":
+            b = b + pad
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
+            assert a.is_contiguous(), name
+        else:
+            assert a == b, name
+    # the widths: of the unlaid-out weights, Wc the (padded) concat layer's
+    assert (got.De, got.Dh) == tuple(plain.ffn_up.shape[1:]) == (spec.De, spec.dh)
+    if kind != "selected":
+        concat = plain.w2 if kind == "fused" else plain.concat_w
+        assert got.Wc == concat.shape[1] + pad == (rank or spec.De) + pad
+    if kind == "chain":
+        assert got.low_rank == bool(rank)
+    elif kind == "fused":
+        assert (got.layout == "low_rank") == bool(rank) and got.has_in_proj
 
 
 # The fused-substep table layouts (B4) and the candidate kinds (B5): the
@@ -511,40 +604,6 @@ def test_fused_plan_raises_on_an_unknown_layout():
     with pytest.raises(ValueError, match="layout"):
         kernels.fused_plan(N * 32, 16, 128, 256, 128, 256, 128, bf16=True, layout="perbin",
                            in_proj=False, stages=6)
-
-
-@pytest.mark.parametrize("rank", [8, 16, 20])
-def test_pad_fused_rank_round_trip(rank):
-    """The fused-substep tensor-core route pads the low-rank factor's rank
-    to a multiple of 16 with zeros at the end of the table (its W1 slice),
-    of w2 and of concat_w2's rows: the original operands come back out,
-    and the low-rank product from the padded ones is unchanged."""
-    spec = QincoSpec(D=32, K=64, M=2, L=1, de=48, dh=64, A=8, B=8, concat_rank=rank,
-                     fused_substep=True, compute_dtype="bfloat16")
-    g = torch.Generator().manual_seed(0)
-    p = init_params(spec, g, device="cpu").step(0)
-    p = p._replace(concat_w=torch.randn(p.concat_w.shape, generator=g),
-                   concat_w2=torch.randn(p.concat_w2.shape, generator=g))
-    w = kernels._fused_weights(spec, p)
-    padded = kernels._pad_fused_rank(w)
-    pad = -rank % 16
-    assert padded.table.shape == (w.table.shape[0], w.table.shape[1] + pad)
-    assert padded.w2.shape == (w.w2.shape[0], rank + pad)
-    assert padded.concat_w2.shape == (rank + pad, w.concat_w2.shape[1])
-    assert torch.equal(padded.table[:, :w.table.shape[1]], w.table)
-    assert torch.equal(padded.w2[:, :rank], w.w2)
-    assert torch.equal(padded.concat_w2[:rank], w.concat_w2)
-    assert not padded.table[:, w.table.shape[1]:].any() and not padded.w2[:, rank:].any()
-    assert not padded.concat_w2[rank:].any()
-    assert (padded.off_h, padded.off_w1, padded.off_up) == (w.off_h, w.off_w1, w.off_up)
-    lr = torch.from_numpy(np.random.default_rng(1).normal(size=(5, w.w2.shape[0])))
-    t_w1 = w.table[:5, w.off_w1:].double()
-    want = (t_w1 + lr @ w.w2.double()) @ w.concat_w2.double()
-    got = (padded.table[:5, w.off_w1:].double() + lr @ padded.w2.double()) @ (
-        padded.concat_w2.double())
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    if rank % 16 == 0:
-        assert padded is w
 
 
 # ---------------------------------------------------------------------------

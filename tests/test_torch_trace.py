@@ -95,7 +95,7 @@ def test_kernel_spans_carry_the_column_passes(monkeypatch, D):
     is read again at D = 128), and the counter ``kernels.refetch_bytes``
     sums them over the launches."""
     monkeypatch.setattr(kernels, "_require_cuda", lambda t: None)
-    monkeypatch.setattr(kernels, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     monkeypatch.setattr(kernels, "_launch", lambda *a, **kw: None)
     spec = QincoSpec(D=D, K=256, M=2, L=16, de=384, dh=384, A=16, B=32, pallas=True, fast=True,
                      compute_dtype="bfloat16")

@@ -81,7 +81,7 @@ def selected_exact(spec, x, xh, p, ids):
     (float64), rounded at the same points, for the candidates ``ids (NF,
     A)``: the unpacked distances ``(NF, A)``."""
     rnd = kernels.rounder(spec)
-    w = kernels._selected_weights(spec, p)
+    w = kernels.selected_weights(spec, p)
     F_in, D = xh.shape[0] // x.shape[0], xh.shape[1]
     r = x.repeat_interleave(F_in, dim=0) - xh
     tab = w.table.float()[ids.long()]
