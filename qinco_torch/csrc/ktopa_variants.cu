@@ -53,13 +53,14 @@
 
 namespace qt {
 
-template <int NW>
+template <int NW, int HP>
 cudaError_t launch_cut(int cut, int blocks, int smem, int cluster, cudaStream_t s,
                        const SelectedArgs& a) {
   switch (static_cast<SelCut>(cut)) {
-#define QT_CUT(C)                                                                            \
-  case SelCut::C:                                                                            \
-    return launch_selected(selected_scores_tc_kernel<NW, SelCut::C>, blocks, smem, cluster, s, a);
+#define QT_CUT(C)                                                                       \
+  case SelCut::C:                                                                       \
+    return launch_selected(selected_scores_tc_kernel<NW, SelCut::C, false, HP>, blocks, \
+                           smem, cluster, s, a);
     QT_CUT(kFull)
     QT_CUT(kNoExtract)
     QT_CUT(kMlpOnly)
@@ -94,14 +95,16 @@ extern "C" int qt_ktopa_variants(const float* x, const float* xh, const float* v
                        Dh,     L,        A,        Wt,    res, rows};
   const bool tournament = cut == static_cast<int>(SelCut::kTournament);
   const size_t extra = selcat ? tc::align16(4 * (size_t)rows * D) : 0;
+  const int hp = hidden_passes(Dh);  // 128 pairs: the hidden's passes in registers
   if (cut < 0 || cut > static_cast<int>(SelCut::kSelCat) || K > 256 || A < 1 ||
       (!selcat && A > K) || (selcat && (vals == nullptr || wfold != nullptr)) ||
       (tournament && (K % A || A > 32 || K / A > 32)) || selected_stages(a) > tc::kMaxStages ||
       SelectedLayout(a, tm, !selcat).slots(smem, extra) < wg::kMinRing || rows < 1 ||
-      rows > kRows || (tm != 64 && tm != 128) || (cluster != 1 && cluster != 2 && cluster != 4) ||
-      blocks < cluster || blocks % cluster)
+      rows > kRows || (tm != 64 && (tm != 128 || hp == 0)) ||
+      (cluster != 1 && cluster != 2 && cluster != 4) || blocks < cluster || blocks % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(tm == 128 ? launch_cut<2>(cut, blocks, smem, cluster, s, a)
-                                    : launch_cut<1>(cut, blocks, smem, cluster, s, a));
+  return static_cast<int>(tm == 64  ? launch_cut<1, 0>(cut, blocks, smem, cluster, s, a)
+                          : hp == 2 ? launch_cut<2, 2>(cut, blocks, smem, cluster, s, a)
+                                    : launch_cut<2, 3>(cut, blocks, smem, cluster, s, a));
 }

@@ -43,19 +43,21 @@
 //   weights (in the slab layout of kernels.wg_blocked) streamed through a
 //   ring of 4 to 16 slabs of 64 x 128 bf16 by bulk copies from four
 //   producer threads, with full and empty mbarriers and no block barrier
-//   per slab.  A tile is 128 pairs where its cand, h and FFN hidden fit in
-//   shared memory (qinco2-S: each of the two consumer warpgroups runs 64
-//   rows on whole 128-column passes), else 64 (qinco2-M and -L, where 128
-//   pairs would take 224 KB: both warpgroups run the 64 rows, each on one
-//   64-column half of every pass).  Where every SM has a work item the
-//   blocks run in clusters of 2 that share each slab by multicast, so a
-//   weight byte read from L2 feeds 2·TM pairs: 256 at qinco2-S, 128 at
-//   qinco2-L (2x the mma.sync kernel's 64 there).  Measured on an H100
-//   (PERF.md §6): a bulk copy holds its thread about 650 cycles
-//   whatever its size, so 8 KB slabs from one thread held the ring to
-//   12.5 B a cycle an SM and 16 KB slabs from four threads lift it past
-//   what the products take; clusters of 4 (256 pairs a byte at qinco2-L)
-//   ran 12% slower than 2 there, the kernel not being bound by L2.
+//   per slab.  A tile is 128 pairs where Dh is 2 or 3 passes (qinco2-S,
+//   -M, -L) and its cand and h fit in shared memory: each of the two
+//   consumer warpgroups runs 64 rows on whole 128-column passes and holds
+//   their FFN hidden in registers (the up product's sums, packed to bf16,
+//   are the A of the down product), which frees the 96 KB a (128, 384)
+//   hidden would take at qinco2-M and -L.  Else a tile is 64 pairs, the
+//   hidden in shared memory: both warpgroups run the 64 rows, each on one
+//   64-column half of every pass.  Where
+//   every SM has a work item the blocks run in clusters of 2 that share
+//   each slab by multicast, so a weight byte read from L2 feeds 2·TM
+//   pairs: 256.  Measured on an H100 (PERF.md §6): a bulk copy holds its
+//   thread about 650 cycles whatever its size, so 8 KB slabs from one
+//   thread held the ring to 12.5 B a cycle an SM and 16 KB slabs from
+//   four threads lift it past what the products take; at 64-pair tiles
+//   clusters of 4 ran 12% slower than 2, the kernel not being bound by L2.
 //   Where the rows are too wide for that (D = 768 at qinco2-M and -L: cand,
 //   h and the hidden of 64 pairs with r and the ring take more than a
 //   block's shared memory), the wrapper's plan takes D in column passes:
@@ -277,17 +279,19 @@ extern "C" int qt_selected_scores(const float* x, const float* xh, const float* 
   }
   if (kc != D) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    // the plan's tile, rows a work item, cluster and shared memory (at
-    // least wg::kMinRing slots of the ring), or nothing
-    if (selected_stages(a) > tc::kMaxStages || (tm != 64 && tm != 128) || rows < 1 ||
-        rows > kRows || (cluster != 1 && cluster != 2 && cluster != 4) || blocks < cluster ||
-        blocks % cluster ||
+    // the plan's tile (128 pairs: the hidden's 2 or 3 passes in
+    // registers), rows a work item, cluster and shared memory (at least
+    // wg::kMinRing slots of the ring), or nothing
+    const int hp = hidden_passes(Dh);
+    if (selected_stages(a) > tc::kMaxStages || (tm != 64 && (tm != 128 || hp == 0)) ||
+        rows < 1 || rows > kRows || (cluster != 1 && cluster != 2 && cluster != 4) ||
+        blocks < cluster || blocks % cluster ||
         SelectedLayout(a, tm, vals == nullptr).slots(smem, 0) < wg::kMinRing)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        tm == 128
-            ? launch_selected(selected_scores_tc_kernel<2, SelCut::kFull>, blocks, smem, cluster, s, a)
-            : launch_selected(selected_scores_tc_kernel<1, SelCut::kFull>, blocks, smem, cluster, s, a));
+    const auto kernel = tm == 64  ? selected_scores_tc_kernel<1, SelCut::kFull>
+                        : hp == 2 ? selected_scores_tc_kernel<2, SelCut::kFull, false, 2>
+                                  : selected_scores_tc_kernel<2, SelCut::kFull, false, 3>;
+    return static_cast<int>(launch_selected(kernel, blocks, smem, cluster, s, a));
   }
   // f32: the plan's tile, rows a work item and shared memory, or nothing
   if (selected_stages(a) > f32::kMaxStages ||

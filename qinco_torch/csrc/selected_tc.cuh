@@ -7,6 +7,8 @@
 // Its MLP products run on wgmma with the weight ring of wgmma.cuh.
 #pragma once
 
+#include <type_traits>
+
 #include "step_tc.cuh"
 #include "wgmma.cuh"
 
@@ -155,8 +157,9 @@ struct SelectedStages {
 //   the ring's barriers | r (R, D) f32 | ccb (R, De) f32 | vals (R, A) f32 |
 //   the two warpgroups' distance partials (2, 64) f32 | one region, overlaid by phase: rnd(xh) (64, D) bf16, the condition
 //   product's A;  then rnd(r) (R, D) f32 and the substep tile (K, R + 1)
-//   f32;  then per tile cand (TM, D), h (TM, De) and the FFN hidden
-//   (TM, Dh) bf16 | the ring's slots (128-byte aligned), as many as the
+//   f32;  then per tile cand (TM, D), h (TM, De) and, at TM = 64, the FFN
+//   hidden (TM, Dh) bf16 (at 128 the warpgroups hold it in registers) |
+//   the ring's slots (128-byte aligned), as many as the
 //   launch's shared memory holds, at most wg::kMaxRing.  The bf16 buffers
 //   are in the core-matrix layout (wg::act_off).  On the D-passed plan
 //   (`passed`) the region holds a chunk of kc columns of rnd(xh) (64, kc),
@@ -178,7 +181,8 @@ struct SelectedLayout {
     cand = u;
     h = passed ? u : cand + 2 * (size_t)TM * g.D;
     big = h + 2 * (size_t)TM * g.De;
-    size_t wide = g.Dh;  // the FFN hidden; passed, also a chunk of cand or a pass's columns of it
+    // the FFN hidden (in registers at TM = 128); passed, also a chunk of cand or a pass's columns
+    size_t wide = TM == 64 ? g.Dh : 0;
     if (passed) {
       wide = wide > (size_t)g.kc ? wide : g.kc;
       wide = wide > (size_t)wg::kPass ? wide : wg::kPass;
@@ -195,6 +199,14 @@ struct SelectedLayout {
     return n < (size_t)wg::kMaxRing ? (int)n : wg::kMaxRing;
   }
 };
+
+// The FFN hidden's passes (HP of selected_scores_tc_kernel) that the
+// 128-pair tile holds in registers: Dh of 2 or 3 whole passes of wg::kPass
+// (the qinco2-S, -M and -L widths: 64 or 96 registers a thread); 0 where it
+// cannot, and the plan takes 64-pair tiles (kernels._wg_tiles).
+__host__ __device__ constexpr int hidden_passes(int Dh) {
+  return Dh == 2 * wg::kPass || Dh == 3 * wg::kPass ? Dh / wg::kPass : 0;
+}
 
 // The phase cuts of the kernel's in-kernel top-A route: kFull is the
 // production kernel; the others are the card's counterparts of the modes of
@@ -222,7 +234,13 @@ enum class SelCut : int {
 // = 64·NW (row, slot) pairs: under NW = 2 each consumer warpgroup runs the
 // products for its own 64 rows on whole passes; under NW = 1 both run them
 // for the 64 rows, each on one 64-column half of every pass, and their
-// distance partials are added in a fixed order.  The blocks of a cluster
+// distance partials are added in a fixed order.  Under NW = 2 (Dh = HP
+// passes of wg::kPass, hidden_passes) a warpgroup holds its 64 rows of the
+// FFN hidden in registers, 32·HP a thread (the up product's epilogue packs
+// its sums into them, wg::pack_frag), and the down product takes them as
+// its A (wg::product_regs); the layout has no hidden, which leaves room
+// for the 128-pair tile at the qinco2-M and -L widths.  Under NW = 1 the
+// hidden is (64, Dh) in shared memory.  The blocks of a cluster
 // (1, 2 or 4 of them, the launch's) share every weight slab; cluster c
 // walks the work items c·C + rank, c·C + rank + C·clusters, ..., every
 // block of it as many rounds as its first (a block past the last item
@@ -237,7 +255,7 @@ enum class SelCut : int {
 // filled from device memory again for every pass over their output
 // columns, and before each pass of out_proj the pairs' codewords of its
 // columns come again from the table (L2) for the distance.
-template <int NW, SelCut CUT, bool PASSED = false>
+template <int NW, SelCut CUT, bool PASSED = false, int HP = 0>
 __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(SelectedArgs g) {
   using namespace tc;
   using wg::act_off;
@@ -252,6 +270,7 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
       CUT == SelCut::kMlpOnly || CUT == SelCut::kNoDist || CUT == SelCut::kShell;
   constexpr bool kMlp = CUT != SelCut::kShell;  // the per-pair products
   static_assert(!PASSED || (NW == 1 && CUT == SelCut::kFull), "the D-passed plan is kFull's");
+  static_assert((NW == 2) == (HP > 0) && !(PASSED && HP), "128 pairs hold the hidden in registers");
   extern __shared__ __align__(128) unsigned char sm[];
   const int D = g.D, De = g.De, Dh = g.Dh, K = g.K, A = g.A, Wt = g.Wt, R = g.R;
   const int tid = threadIdx.x;
@@ -267,7 +286,7 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
   float* S_s = reinterpret_cast<float*>(sm + lay.u + align16(4 * (size_t)R * D));  // (K, R + 1)
   unsigned char* cand_b = sm + lay.cand;  // (TM, D) fetched codewords
   unsigned char* h_b = sm + lay.h;        // (TM, De)
-  unsigned char* hid_b = sm + lay.big;    // (TM, Dh) FFN hidden
+  unsigned char* hid_b = sm + lay.big;    // (TM, Dh) FFN hidden, NW = 1
   float* xh32_s = reinterpret_cast<float*>(sm + dyn - extra);  // (R, D) xh, kSelCat only
 
   const int n_pairs = R * A, n_items = (g.NF + R - 1) / R;
@@ -502,10 +521,12 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
       bf16* hid16 = reinterpret_cast<bf16*>(hid_b);
       // d = ||r - out - cand||^2, summed over the thread's columns for its
       // two rows (h = 0, 1) in the last product's epilogue, in column
-      // order; out(j, h) is that product's output.  kNoDist sums out + cand
+      // order; out(j, h) is that product's output in n8 block j of nj (an
+      // std::integral_constant) from column c0.  kNoDist sums out + cand
       // instead, no residual and no square.
       float dsum[2] = {0.f, 0.f};
-      const auto score = [&](int c0, auto out) {
+      using AllJ = std::integral_constant<int, kNJ>;
+      const auto score = [&](int c0, auto out, auto nj) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int T = T0 + frag_row(h);
@@ -513,7 +534,7 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
           const float* hr = xh32_s + row(min(T, rows - 1), p0) * D;
           float q = dsum[h];
 #pragma unroll
-          for (int j = 0; j < kNJ; ++j) {
+          for (int j = 0; j < decltype(nj)::value; ++j) {
             const int c = c0 + frag_col(j);
             if (c < D) {
               float2 o = out(j, h);
@@ -570,54 +591,85 @@ __global__ void __launch_bounds__(wg::kBlock, 1) selected_scores_tc_kernel(Selec
         product_sync();
       }
       // FFN blocks: up = rnd(relu(h·U_l)); h = rnd(h + rnd(up·D_l)); the last
-      // block's h carries the score when no out_proj follows
+      // block's h carries the score when no out_proj follows.  up in the
+      // warpgroup's registers (NW = 2) or in shared memory.
+      uint32_t hid[HP > 0 ? 32 * HP : 1];
       for (int l = 0; l < g.L; ++l) {
-        wg::product<N>(ring, a_h, De, De, Dh, col, on, [&](float(&d)[N / 2], int c0) {
+        if constexpr (HP > 0) {
+          wg::product_passes<HP>(ring, a_h, De, De, [&](float(&d)[wg::kPass / 2], int p) {
+            wg::pack_frag(d, hid, 32 * p, [](float v) { return fmaxf(v, 0.f); });
+          });
+        } else {
+          wg::product<N>(ring, a_h, De, De, Dh, col, on, [&](float(&d)[N / 2], int c0) {
 #pragma unroll
-          for (int j = 0; j < kNJ; ++j) {
-            const int c = c0 + frag_col(j);
+            for (int j = 0; j < kNJ; ++j) {
+              const int c = c0 + frag_col(j);
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
-              if (c < Dh)
-                st_bf2(hid16 + act_off(T0 + frag_row(h), c, Dh) / 2, fmaxf(d[4 * j + 2 * h], 0.f),
-                       fmaxf(d[4 * j + 2 * h + 1], 0.f));
-          }
-        });
-        product_sync();
+              for (int h = 0; h < 2; ++h)
+                if (c < Dh)
+                  st_bf2(hid16 + act_off(T0 + frag_row(h), c, Dh) / 2,
+                         fmaxf(d[4 * j + 2 * h], 0.f), fmaxf(d[4 * j + 2 * h + 1], 0.f));
+            }
+          });
+          product_sync();
+        }
         const bool last = l == g.L - 1 && !proj;
-        wg::product<N>(ring, a_hid, Dh, Dh, De, col, on, [&](float(&d)[N / 2], int c0) {
-          uint32_t v[kNJ][2];
+        // J n8 blocks at a time, each round loading before it stores: half
+        // the blocks a round beside a hidden of 96 registers (HP = 3), so
+        // that ptxas spills nothing
+        const auto down_out = [&](float(&d)[N / 2], int c0) {
+          constexpr int J = HP > 2 ? kNJ / 2 : kNJ;
 #pragma unroll
-          for (int j = 0; j < kNJ; ++j)
+          for (int j0 = 0; j0 < kNJ; j0 += J) {
+            uint32_t v[J][2];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int c = c0 + frag_col(j);
-              v[j][h] = c < De ? *reinterpret_cast<const uint32_t*>(
-                                     h16 + act_off(T0 + frag_row(h), c, De) / 2)
-                               : 0u;
-            }
+            for (int j = 0; j < J; ++j)
 #pragma unroll
-          for (int j = 0; j < kNJ; ++j)
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + frag_col(j0 + j);
+                v[j][h] = c < De ? *reinterpret_cast<const uint32_t*>(
+                                       h16 + act_off(T0 + frag_row(h), c, De) / 2)
+                                 : 0u;
+              }
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float2 o = unpack_bf2(v[j][h]);
-              v[j][h] = pack_bf2(rnd<true>(d[4 * j + 2 * h]) + o.x,
-                                 rnd<true>(d[4 * j + 2 * h + 1]) + o.y);
-            }
+            for (int j = 0; j < J; ++j)
 #pragma unroll
-          for (int j = 0; j < kNJ; ++j)
+              for (int h = 0; h < 2; ++h) {
+                const float2 o = unpack_bf2(v[j][h]);
+                v[j][h] = pack_bf2(rnd<true>(d[4 * (j0 + j) + 2 * h]) + o.x,
+                                   rnd<true>(d[4 * (j0 + j) + 2 * h + 1]) + o.y);
+              }
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int c = c0 + frag_col(j);
-              if (c < De)
-                *reinterpret_cast<uint32_t*>(h16 + act_off(T0 + frag_row(h), c, De) / 2) = v[j][h];
-            }
-          if (last) score(c0, [&](int j, int h) { return unpack_bf2(v[j][h]); });
-        });
+            for (int j = 0; j < J; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + frag_col(j0 + j);
+                if (c < De)
+                  *reinterpret_cast<uint32_t*>(h16 + act_off(T0 + frag_row(h), c, De) / 2) =
+                      v[j][h];
+              }
+            if (HP == 0 && last)
+              score(c0 + 8 * j0, [&](int j, int h) { return unpack_bf2(v[j][h]); },
+                    std::integral_constant<int, J>{});
+          }
+        };
+        if constexpr (HP > 0)
+          wg::product_regs<2 * HP>(ring, hid, De, on, down_out);
+        else
+          wg::product<N>(ring, a_hid, Dh, Dh, De, col, on, down_out);
         product_sync();
       }
+      // HP > 0 and no out_proj: the last block's h, read back pass by pass,
+      // carries the score (in the down product's epilogue it made ptxas
+      // spill beside the hidden's registers)
+      if (HP > 0 && on && !proj && g.L > 0)
+        for (int c0 = 0; c0 < De; c0 += wg::kPass)
+          score(c0, [&](int j, int h) {
+            return ld_bf2(h16 + act_off(T0 + frag_row(h), c0 + frag_col(j), De) / 2);
+          }, AllJ{});
       const auto proj_out = [&](float(&d)[N / 2], int c0) {
-        score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); });
+        score(c0, [&](int j, int h) { return make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]); },
+              AllJ{});
       };
       if constexpr (PASSED) {  // before each pass, its columns of the pairs' codewords
         wg::product_chunked<N>(ring, a_h, De, De, D, col, on, proj_out,

@@ -12,6 +12,11 @@
 //     the build short and the accumulator at 64 or 32 registers a thread;
 //     a pass reads A again, which at m64n128k16 costs 2 KB of shared
 //     memory against 4 KB of the slab for 64 cycles of the tensor cores.
+//   - A product may also take A from registers (product_regs, whole
+//     passes): the bf16 pairs of an earlier product's sums, which an
+//     m64nNk16 accumulator holds in the layout of wgmma's A fragments
+//     (pack_frag), so an activation that one product writes and the next
+//     reads once never goes through shared memory.
 //   - Both operands are read from shared memory in the no-swizzle K-major
 //     layout of 8 x 8 core matrices (128 contiguous bytes each), so a
 //     warp's 4-byte stores of an epilogue fall in one core matrix and no
@@ -101,6 +106,10 @@ template <int N> __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N> __device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
 
 // d (+)= A·B, m64n64k16, A and B from shared memory (descriptors).
 __device__ __forceinline__ void mma_async(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -136,6 +145,29 @@ __device__ __forceinline__ void mma_async(float (&d)[64], uint64_t da, uint64_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (+)= A·B, m64n128k16, A from registers (a0..a3: the thread's fragment
+// of the 64 x 16 slice, bf16 pairs), B from shared memory (descriptor).
+__device__ __forceinline__ void mma_async(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
 }
 
 // ---- clusters
@@ -345,36 +377,108 @@ __device__ __forceinline__ int frag_col(int j) { return 8 * j + 2 * (threadIdx.x
 // no rows computes on what its buffer holds): a branch around wgmma would
 // make ptxas serialize them.  A slab's k16 steps past kin (the last slab
 // of a kin that is no multiple of kSlabK) multiply the slab's first step's
-// A by the slab's zero rows.
+// A by the slab's zero rows.  pass_sums computes one pass's sums into d;
+// product runs it pass by pass.
+template <int N, class Ring_>
+__device__ __forceinline__ void pass_sums(Ring_& ring, float (&d)[N / 2], uint32_t a, int a_w,
+                                          int kin, int col) {
+  const uint32_t sbo = 16 * a_w, half = 2 * kSlabK * col;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  fence_operands(d);
+  mma_fence();
+  for (int k0 = 0; k0 < kin; k0 += kSlabK) {
+    const uint32_t b = ring.acquire() + half;
+    mma_async(d, desc(a + 16 * k0, 128, sbo), desc(b, 128, 16 * kSlabK), k0 > 0);
+#pragma unroll
+    for (int kk = 1; kk < kSlabK / 16; ++kk) {
+      const int k = k0 + 16 * kk < kin ? k0 + 16 * kk : k0;
+      mma_async(d, desc(a + 16 * k, 128, sbo), desc(b + 256 * kk, 128, 16 * kSlabK), 1);
+    }
+    mma_commit();
+    if (k0 >= 2 * kSlabK) {  // two slabs' products stay in flight
+      mma_wait<2>();
+      ring.release();
+    }
+  }
+  mma_wait<0>();
+  ring.release();
+  if (kin > kSlabK) ring.release();
+  fence_operands(d);
+}
+
 template <int N, class Ring_, class Epi>
 __device__ __forceinline__ void product(Ring_& ring, uint32_t a, int a_w, int kin, int nout,
                                         int col, bool on, Epi epi) {
-  const uint32_t sbo = 16 * a_w, half = 2 * kSlabK * col;
   for (int p0 = 0; p0 < nout; p0 += kPass) {
     float d[N / 2];
+    pass_sums<N>(ring, d, a, a_w, kin, col);
+    if (on) epi(d, p0 + col);
+  }
+}
+
+// product() on whole passes over exactly P passes (nout = P·kPass), the
+// loop unrolled so that epi(d, p) may put pass p's sums in registers of
+// its own (pack_frag); epi runs whether or not the warpgroup has rows.
+template <int P, class Ring_, class Epi>
+__device__ __forceinline__ void product_passes(Ring_& ring, uint32_t a, int a_w, int kin, Epi epi) {
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  for (int p = 0; p < P; ++p) {
+    float d[kPass / 2];
+    pass_sums<kPass>(ring, d, a, a_w, kin, 0);
+    epi(d, p);
+  }
+}
+
+// A's fragments from a pass's sums d[64] (m64n128k16), each pair of
+// columns f(d[2i]), f(d[2i + 1]) rounded to one bf16 pair at q[at + i]:
+// q[at + 4kk .. at + 4kk + 3] is then the A fragment (wgmma, A from
+// registers) of the pass's columns 16kk .. 16kk + 15, as the
+// accumulator's n8 blocks 2kk and 2kk + 1 hold them (rows frag_row(0),
+// frag_row(1); columns frag_col).
+template <int M, class F>
+__device__ __forceinline__ void pack_frag(const float (&d)[kPass / 2], uint32_t (&q)[M], int at,
+                                          F f) {
+#pragma unroll
+  for (int i = 0; i < kPass / 4; ++i) q[at + i] = tc::pack_bf2(f(d[2 * i]), f(d[2 * i + 1]));
+}
+
+// out = A·W on whole passes (N = kPass) for the 64 rows of the calling
+// consumer warpgroup, A from registers: a[16·S], the pack_frag fragments
+// of A's 64·S columns (k16 step k at a[4k .. 4k + 3]), W the ring's next
+// stage (64·S, nout), its S slabs a pass walked as product() walks them.
+// Where `on`, epi(d, c0) receives each pass's sums as in product().  The
+// slab loop is unrolled (the fragments' indices fixed at compile time),
+// and each slab's products complete before the next slab is waited for:
+// products left in flight across the unrolled waits made ptxas serialize
+// every wgmma of the kernel (C7515; 12.2 against 10.2 ms a launch at
+// qinco2-L on an H100); the other warpgroup's products fill the gap.
+template <int S, class Ring_, class Epi>
+__device__ __forceinline__ void product_regs(Ring_& ring, uint32_t (&a)[16 * S], int nout, bool on,
+                                             Epi epi) {
+  for (int p0 = 0; p0 < nout; p0 += kPass) {
+    float d[kPass / 2];
+#pragma unroll
+    for (int i = 0; i < kPass / 2; ++i) d[i] = 0.f;
     fence_operands(d);
+    fence_operands(a);
     mma_fence();
-    for (int k0 = 0; k0 < kin; k0 += kSlabK) {
-      const uint32_t b = ring.acquire() + half;
-      mma_async(d, desc(a + 16 * k0, 128, sbo), desc(b, 128, 16 * kSlabK), k0 > 0);
 #pragma unroll
-      for (int kk = 1; kk < kSlabK / 16; ++kk) {
-        const int k = k0 + 16 * kk < kin ? k0 + 16 * kk : k0;
-        mma_async(d, desc(a + 16 * k, 128, sbo), desc(b + 256 * kk, 128, 16 * kSlabK), 1);
+    for (int s = 0; s < S; ++s) {
+      const uint32_t b = ring.acquire();
+#pragma unroll
+      for (int kk = 0; kk < kSlabK / 16; ++kk) {
+        const int k = 16 * s + 4 * kk;
+        mma_async(d, a[k], a[k + 1], a[k + 2], a[k + 3], desc(b + 256 * kk, 128, 16 * kSlabK),
+                  s > 0 || kk > 0);
       }
       mma_commit();
-      if (k0 >= 2 * kSlabK) {  // two slabs' products stay in flight
-        mma_wait<2>();
-        ring.release();
-      }
+      mma_wait<0>();
+      ring.release();
     }
-    mma_wait<0>();
-    ring.release();
-    if (kin > kSlabK) ring.release();
     fence_operands(d);
-    if (on) epi(d, p0 + col);
+    fence_operands(a);
+    if (on) epi(d, p0);
   }
 }
 

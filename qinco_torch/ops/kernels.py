@@ -157,6 +157,9 @@ _WG_PASS = 128  # wg::kPass
 _WG_SLAB_BYTES = _WG_SLAB_K * _WG_PASS * 2  # wg::kSlabBytes: a ring slot
 _WG_RING = (4, 16)  # wg::kMinRing, wg::kMaxRing
 _WG_BAR_BYTES = 2 * 16 * 8  # wg::kBarBytes
+# The FFN hidden's widths, in passes of _WG_PASS, that the 128-pair tile
+# holds in registers (hidden_passes in selected_tc.cuh): 64 or 96 a thread.
+_WG_HIDDEN_PASSES = (2, 3)
 # Blocks of a cluster where every SM has a work item: a weight byte read
 # from L2 then feeds 2·tile pairs.  Clusters of 4 ran slower on an H100
 # (PERF.md §6): the kernel is not bound by L2 at these tiles.
@@ -399,16 +402,20 @@ def selected_scores(
 def _selected_cuda(spec: QincoSpec, x, xh, p, n_codes: int, F_in: int, vals) -> torch.Tensor:
     """The CUDA path of :func:`selected_scores`, in its span
     ``kernels.selected_scores`` with the plan's ids; counts the bytes its
-    column passes read again (``kernels.refetch_bytes``)."""
+    column passes read again (``kernels.refetch_bytes``) and the launches
+    that hold the FFN hidden in registers, those on 128-pair tiles
+    (``kernels.selected_hidden_regs``)."""
     with tracing.span("kernels.selected_scores") as sp:
         _require_cuda(xh)
         w = selected_weights(spec, p, kernel=True)
         plan = selected_launch_plan(spec, xh, w, n_codes, vals is None)
         refetch = selected_refetch_bytes(plan, n_codes, xh.shape[1], w.De,
                                          wfold=w.wfold is not None, res=bool(_res(spec)))
+        regs = plan.mma and plan.tm == _WG_TILES[0]
         sp.set(tile_pairs=plan.tm, cluster=plan.cluster, d_passes=plan.d_passes,
-               refetch_bytes=refetch)
+               refetch_bytes=refetch, hidden="regs" if regs else "smem")
         tracing.count("kernels.refetch_bytes", refetch)
+        tracing.count("kernels.selected_hidden_regs", int(regs))
         return _selected_launch(spec, x, xh, w, n_codes, F_in, vals, plan)
 
 
@@ -1076,6 +1083,15 @@ def wg_blocked(w: Optional[torch.Tensor], dtype: Optional[torch.dtype] = None
     return out.copy_(v).reshape(*lead, -1)
 
 
+def _wg_tiles(Dh: int) -> tuple:
+    """B2's bf16 tiles for an FFN hidden of width Dh, largest first: 128
+    pairs, whose two warpgroups hold the hidden in registers, where Dh is
+    one of _WG_HIDDEN_PASSES whole passes (``hidden_passes`` in
+    ``csrc/selected_tc.cuh``), and 64."""
+    regs = Dh % _WG_PASS == 0 and Dh // _WG_PASS in _WG_HIDDEN_PASSES
+    return _WG_TILES if regs else _WG_TILES[1:]
+
+
 def _selected_ring(R, tm, A, D, K, De, Dh, topa, kc: int = 0) -> int:
     """Offset of B2's weight ring in shared memory (SelectedLayout::ring):
     the barriers, r, ccb, vals and the overlaid region; ``kc`` < D: the
@@ -1085,8 +1101,8 @@ def _selected_ring(R, tm, A, D, K, De, Dh, topa, kc: int = 0) -> int:
     substep = _a16(4 * R * D) + 4 * K * (R + 1) if topa else 0
     if 0 < kc < D:  # a chunk of rnd(xh); h, and the FFN hidden or columns of cand
         phase0, tiles = 2 * 64 * kc, 2 * tm * (De + max(Dh, kc, _WG_PASS))
-    else:  # rnd(xh), the condition product's 64 rows; cand, h, FFN hidden
-        phase0, tiles = 2 * 64 * D, 2 * tm * (D + De + Dh)
+    else:  # rnd(xh), the condition product's 64 rows; cand, h, the FFN hidden at 64 pairs
+        phase0, tiles = 2 * 64 * D, 2 * tm * (D + De + (Dh if tm < _WG_TILES[0] else 0))
     return -(-(head + _a16(max(phase0, substep, tiles))) // 128) * 128
 
 
@@ -1108,11 +1124,11 @@ def wg_grid(items: int, sms: int) -> tuple[int, int]:
 
 
 def _selected_wg_fit(NF, A, D, K, De, Dh, topa, sms, row_bytes: int = 0) -> Optional[LaunchPlan]:
-    """B2's bf16 one-pass plan: the largest tile whose rows a work item
-    (the most that leave _SMS items, halved until it fits) fit with the
-    ring's least slots (and ``row_bytes`` more a row), on the grid of
-    :func:`wg_grid`; None where nothing fits."""
-    for tm in _WG_TILES:
+    """B2's bf16 one-pass plan: the largest tile of :func:`_wg_tiles` whose
+    rows a work item (the most that leave _SMS items, halved until it fits)
+    fit with the ring's least slots (and ``row_bytes`` more a row), on the
+    grid of :func:`wg_grid`; None where nothing fits."""
+    for tm in _wg_tiles(Dh):
         per = _per_item(NF, _ROWS)
         while per:
             smem = _selected_mma_smem(per, tm, A, D, K, De, Dh, topa, _a16(row_bytes * per))

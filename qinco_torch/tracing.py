@@ -5,10 +5,11 @@ A span is a named stretch of the host's time: ``with span(name, **ids):``
 (``as s``, then ``s.set(**ids)`` adds ids found inside it).
 Spans nest; each record holds its name, start and end (``time.time_ns()``),
 its own id, its parent's id (the span open when it started, 0 for none)
-and its integer ids.  The request ids (:data:`REQUEST_IDS`: ``chunk``,
-``step``) of the parent are carried down, so that the spans of one chunk
-or one train step share the chunk's or the step's id.  Spans nest as one
-host thread opens them: the port's loops record from one thread.
+and its ids (integers, or a word where a plan names a route).  The request
+ids (:data:`REQUEST_IDS`: ``chunk``, ``step``) of the parent are carried
+down, so that the spans of one chunk or one train step share the
+chunk's or the step's id.  Spans nest as one host thread opens them: the
+port's loops record from one thread.
 
 Recording is on while a torch profiler session is active (the profiler's
 own Python flag, ``torch.autograd.profiler._is_profiler_enabled``, which
@@ -42,8 +43,10 @@ The spans, by layer (each name is fixed):
   ``kernels.fused_substep_scores`` and ``kernels.candidate_scores`` around
   each wrapper's CUDA path: its weight operands (the casts), its launch
   plan and the launch; ``kernels.selected_scores`` has the plan's ids
-  ``tile_pairs`` (pairs a tile) and ``cluster`` (blocks that share each
-  weight slab); ``kernels.selected_scores`` and ``kernels.select_rebuild``
+  ``tile_pairs`` (pairs a tile), ``cluster`` (blocks that share each
+  weight slab) and ``hidden`` (``"regs"`` where the warpgroups hold the
+  FFN hidden in registers, else ``"smem"``); ``kernels.selected_scores``
+  and ``kernels.select_rebuild``
   have ``d_passes`` (the plan's column passes over the data's width D: 1
   where it holds D whole) and ``refetch_bytes`` (the bytes those passes
   read again beyond the first read, worked out from the plan and not
@@ -62,7 +65,9 @@ Counters: ``io.h2d_bytes``, the bytes copied host to device by
 ``selected_scores`` launch's plan streams from L2 (its tiles' and items'
 products, once a cluster: ``kernels.selected_stream_bytes``), while
 recording; ``kernels.refetch_bytes``, the sum of the two spans'
-``refetch_bytes``, while recording; ``distances.plain_argmin_rows``, the rows that
+``refetch_bytes``, while recording; ``kernels.selected_hidden_regs``, the
+``selected_scores`` launches that held the FFN hidden in registers, while
+recording; ``distances.plain_argmin_rows``, the rows that
 ``ops.distances.chunked_argmin`` gives its plain loop (not CUDA float32:
 the CPU, other types), while recording; and
 :data:`LAUNCHES`, the kernel launches by kernel (``ops.kernels``), always

@@ -6,8 +6,10 @@ with a low-rank factor, unpacked at K = 1024); the phase-breakdown
 kernels of B2 and B4 (ops/breakdown.py, each mode or cut, selcat and the
 streaming probes); the bf16 tensor-core
 kernels and the f32 kernels of all four with a ragged last work item, and
-the f32 kernels' repeatability; B2 and B3 at D = 768, where their plans
-take D in column passes, against their plain versions and exact sums.  Under bf16
+the f32 kernels' repeatability; B2 on 128-pair tiles with the FFN hidden
+in registers at the qinco2-M and -L widths, and B2 and B3 at D = 768,
+where their plans take D in column passes, against their plain versions
+and exact sums.  Under bf16
 every kernel is its tensor-core route.  Then the determinism of the
 segment sum, k-means and train steps on the card (same bits on every
 run), and the search pipeline's device ops (the coarse probe, the
@@ -151,6 +153,41 @@ def test_selected_scores_largest_plan_launches_clean(cuda):
     rows = slice(0, 512)  # the plain version on a stretch of the rows
     want = kernels.selected_scores_plain(spec, x[:16], xh[rows], p, 16)
     _check_scores(got[rows], want, "bfloat16")
+
+
+# B2 at bf16 on 128-pair tiles, which hold the FFN hidden in registers, at
+# the qinco2-M and -L widths (Dh = 384: 3 passes, 96 registers a thread):
+# (N, F_in, A) of a normal step and of the IVF first step, where 1001 beam
+# rows leave the last work item ragged.
+REGS_CASES = ["M", "L"]
+REGS_STEPS = {"step": (70, 32, 16), "ivf_first": (1001, 1, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", sorted(REGS_STEPS))
+@pytest.mark.parametrize("route", ["topa", "vals"])
+@pytest.mark.parametrize("case", REGS_CASES)
+def test_selected_scores_register_hidden_matches_plain_and_exact(cuda, case, route, step):
+    """Both routes through the register hidden: ids and scores as the plain
+    version's (as above), one launch, and the scores of its candidates no
+    further from sums exact to float64 than the plain version's, up to
+    ``torch_exact``'s multiples."""
+    N, F_in, A = REGS_STEPS[step]
+    spec, p = _step(CASES[case][0], "bfloat16", seed=25, device=cuda)
+    x, xh = _inputs(spec, F_in, N=N, seed=26, device=cuda)
+    plan = kernels.selected_launch_plan(spec, xh, kernels.selected_weights(spec, p), A,
+                                         route == "topa")
+    assert (plan.tm, plan.d_passes) == (128, 1)
+    assert step == "step" or xh.shape[0] % plan.per_item
+    vals = _external_vals(spec, p, x, xh, F_in, A) if route == "vals" else None
+    before = kernels.LAUNCHES["selected_scores"]
+    got = kernels.selected_scores(spec, x, xh, p, A, vals=vals)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selected_scores"] == before + 1
+    _check_scores(got, kernels.selected_scores_plain(spec, x, xh, p, A, vals=vals), "bfloat16")
+    plain = kernels.selected_scores_plain(spec, x, xh, p, A, vals=got)  # the kernel's candidates
+    exact = selected_exact(spec, x, xh, p, kernels.unpack_ids(got))
+    assert_near_exact(_unpacked(got), _unpacked(plain), exact)
 
 
 @pytest.mark.cuda

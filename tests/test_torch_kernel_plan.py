@@ -10,7 +10,8 @@ rows) and at the IVF first step (F_in = 1, A = 32):
 
 - a block's dynamic shared memory is at most 232,448 bytes (sm_90);
 - the bf16 MLP tile is at least 128 pairs at qinco2-S widths and at least
-  64 at the qinco2-M and -L widths;
+  64 at the qinco2-M and -L widths (B2's is 128 at all three: it holds the
+  FFN hidden in registers);
 - a launch offers at least 132 work items (one per SM of an H100) and
   launches one block per SM, or one per item when there are fewer;
 - the work items cover the rows (or vectors) exactly once;
@@ -85,15 +86,16 @@ def test_selected_plan_fills_the_card(preset, step):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_selected_plan_wgmma_layout(preset, step):
     """B2's bf16 plan on wgmma: tile rows, ring and cluster from the shapes.
-    128-pair tiles (two consumer warpgroups, one 64-row half each) where
-    cand, h and the FFN hidden of 128 pairs fit (qinco2-S), else 64 (both
-    warpgroups on one column half each); a ring of 4 to 16 slabs of 64 x
-    128 bf16 after the head and the region; blocks a whole number of
-    clusters, at most one an SM."""
+    128-pair tiles (two consumer warpgroups, one 64-row half each) at all
+    three presets, the FFN hidden (Dh = 256 or 384: 2 or 3 passes of 128)
+    in the warpgroups' registers and out of the layout, so cand and h of
+    128 pairs fit beside the ring at the qinco2-M and -L widths too; a ring
+    of 4 to 16 slabs of 64 x 128 bf16 after the head and the region; blocks
+    a whole number of clusters, at most one an SM."""
     spec = _spec(preset)
     F_in, A = STEPS[step]
     plan = _selected_plan(spec, F_in, A)
-    assert plan.tm == (128 if preset == "qinco2-S" else 64)
+    assert plan.tm == 128
     ring = kernels._selected_ring(plan.per_item, plan.tm, A, spec.D, spec.K, spec.De, spec.dh,
                                   True)
     assert ring % 128 == 0 and (plan.smem - ring) % 16384 == 0
@@ -105,12 +107,12 @@ def test_selected_plan_wgmma_layout(preset, step):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_selected_plan_pairs_a_weight_byte_feeds(preset):
     """Each weight byte B2 reads from L2 feeds tile x cluster pairs: 256 at
-    qinco2-S (128-pair tiles, clusters of 2), 128 at qinco2-M and -L
-    (64-pair tiles, clusters of 2), where the mma.sync kernel fed 128 and
-    64.  A launch with fewer work items than SMs runs no cluster."""
+    all three presets (128-pair tiles, clusters of 2), where the 64-pair
+    tiles of qinco2-M and -L fed 128 and the mma.sync kernel 128 and 64.  A
+    launch with fewer work items than SMs runs no cluster."""
     spec = _spec(preset)
     plan = _selected_plan(spec, 32, 16)
-    assert plan.tm * plan.cluster == (256 if preset == "qinco2-S" else 128)
+    assert plan.tm * plan.cluster == 256
     small = kernels.selected_plan(100, 16, spec.D, spec.K, spec.De, spec.dh, bf16=True,
                                   topa=True, stages=2 + 2 * spec.L + int(_proj(spec)), sms=SMS)
     assert (small.cluster, small.blocks) == (1, small.items)
@@ -614,24 +616,27 @@ def test_fused_plan_raises_on_an_unknown_layout():
 # ---------------------------------------------------------------------------
 
 # (tm, rows or vectors an item, smem, items, blocks) of B2 and B3's plans at
-# D <= 256, as the one-pass planner gave them before the column passes.
+# D <= 256, one-pass plans.  B2 holds the FFN hidden in registers at 128
+# pairs, which gives qinco2-M and -L 128-pair tiles up to D = 128, and
+# qinco2-S 32 rows an item at D = 256 (1 with the hidden in shared memory);
+# at D = 256 cand and h alone keep qinco2-M and -L at 64 pairs.
 ONE_PASS = {
     ("qinco2-S", 96, "step"): ((128, 32, 219904, 1024, 132), (128, 4, 138752, 256, 132)),
     ("qinco2-S", 96, "ivf_first"): ((128, 4, 226048, 256, 132), (128, 4, 131072, 256, 132)),
     ("qinco2-S", 128, "step"): ((128, 32, 232192, 1024, 132), (128, 4, 138752, 256, 132)),
     ("qinco2-S", 128, "ivf_first"): ((128, 4, 218368, 256, 132), (128, 4, 131072, 256, 132)),
-    ("qinco2-S", 256, "step"): ((128, 1, 231808, 32768, 132), (128, 4, 204288, 256, 132)),
-    ("qinco2-S", 256, "ivf_first"): ((128, 1, 231808, 1024, 132), (128, 4, 196608, 256, 132)),
-    ("qinco2-M", 96, "step"): ((64, 16, 225024, 2048, 132), (64, 2, 144384, 512, 132)),
-    ("qinco2-M", 96, "ivf_first"): ((64, 4, 217856, 256, 132), (64, 2, 140544, 512, 132)),
-    ("qinco2-M", 128, "step"): ((64, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
-    ("qinco2-M", 128, "ivf_first"): ((64, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
+    ("qinco2-S", 256, "step"): ((128, 32, 232192, 1024, 132), (128, 4, 204288, 256, 132)),
+    ("qinco2-S", 256, "ivf_first"): ((128, 4, 220416, 256, 132), (128, 4, 196608, 256, 132)),
+    ("qinco2-M", 96, "step"): ((128, 16, 220928, 2048, 132), (64, 2, 144384, 512, 132)),
+    ("qinco2-M", 96, "ivf_first"): ((128, 4, 230144, 256, 132), (64, 2, 140544, 512, 132)),
+    ("qinco2-M", 128, "step"): ((128, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
+    ("qinco2-M", 128, "ivf_first"): ((128, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
     ("qinco2-M", 256, "step"): ((64, 8, 218368, 4096, 132), (64, 2, 164864, 512, 132)),
     ("qinco2-M", 256, "ivf_first"): ((64, 4, 224512, 256, 132), (64, 2, 161024, 512, 132)),
-    ("qinco2-L", 96, "step"): ((64, 16, 225024, 2048, 132), (64, 2, 144384, 512, 132)),
-    ("qinco2-L", 96, "ivf_first"): ((64, 4, 217856, 256, 132), (64, 2, 140544, 512, 132)),
-    ("qinco2-L", 128, "step"): ((64, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
-    ("qinco2-L", 128, "ivf_first"): ((64, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
+    ("qinco2-L", 96, "step"): ((128, 16, 220928, 2048, 132), (64, 2, 144384, 512, 132)),
+    ("qinco2-L", 96, "ivf_first"): ((128, 4, 230144, 256, 132), (64, 2, 140544, 512, 132)),
+    ("qinco2-L", 128, "step"): ((128, 16, 231168, 2048, 132), (64, 2, 148480, 512, 132)),
+    ("qinco2-L", 128, "ivf_first"): ((128, 4, 222464, 256, 132), (64, 2, 144640, 512, 132)),
     ("qinco2-L", 256, "step"): ((64, 8, 218368, 4096, 132), (64, 2, 164864, 512, 132)),
     ("qinco2-L", 256, "ivf_first"): ((64, 4, 224512, 256, 132), (64, 2, 161024, 512, 132)),
 }
@@ -643,8 +648,8 @@ def _wide_spec(preset, D):
 
 @pytest.mark.parametrize("key", sorted(ONE_PASS), ids=lambda k: f"{k[0]}-D{k[1]}-{k[2]}")
 def test_plans_up_to_D256_hold_D_whole(key):
-    """At D = 96, 128 and 256 both plans are the one-pass plans they were,
-    d_passes 1 (B2 in clusters of 2, B3 none)."""
+    """At D = 96, 128 and 256 both plans are one-pass plans, d_passes 1 (B2
+    in clusters of 2, B3 none)."""
     preset, D, step = key
     spec = _wide_spec(preset, D)
     F_in, A = STEPS[step]
@@ -675,6 +680,43 @@ def test_plans_at_D768_take_column_passes(preset, step):
     _check_common(reb, N)
     assert (reb.tm, reb.d_passes) == (64, 2)
     assert kernels.d_pass_width(768, reb.d_passes) == 384
+
+
+@pytest.mark.parametrize("route", ["topa", "vals"])
+@pytest.mark.parametrize("step", sorted(STEPS))
+def test_contriever_plan_keeps_its_column_passes(step, route):
+    """qinco2-L at D = 768 (the Contriever cell): B2's plan is the D-passed
+    one it was, 64-pair tiles with the FFN hidden in shared memory (cand
+    alone, (128, 768) bf16, is 196 KB at 128 pairs), 8 rows an item at a
+    normal step, 2 column passes, clusters of 2."""
+    spec = _wide_spec("qinco2-L", 768)
+    F_in, A = STEPS[step]
+    plan = _selected_plan(spec, F_in, A, topa=route == "topa")
+    want = 8 if step == "step" else 4
+    assert (plan.tm, plan.per_item, plan.d_passes, plan.cluster) == (64, want, 2, 2)
+
+
+@pytest.mark.parametrize("preset", ["qinco2-M", "qinco2-L"])
+def test_selected_ring_drops_the_hidden(preset):
+    """SelectedLayout's ring offset at 128 pairs, R = 16 rows an item, the
+    qinco2-M and -L widths, where the warpgroups hold the hidden in
+    registers: exactly 2 x 128 x 384 bytes (the (128, Dh) bf16 hidden)
+    below the same layout with the hidden in shared memory, composed here
+    by hand, and at least 4 ring slots under the limit, where the
+    shared-memory hidden leaves none."""
+    spec = _spec(preset)
+    D, K, De, Dh, R = spec.D, spec.K, spec.De, spec.dh, 16
+    args = (R, 128, 16, D, K, De, Dh, True)
+    regs = kernels._selected_ring(*args)
+    # the barriers, r, ccb, vals, the partials; the region: rnd(xh), the
+    # substep tile, or cand, h and the hidden of 128 pairs
+    head = 256 + 4 * R * D + 4 * R * De + 4 * R * 16 + 2 * 64 * 4
+    region = max(2 * 64 * D, 4 * R * D + 4 * K * (R + 1), 2 * 128 * (D + De + Dh))
+    smem = -(-(head + region) // 128) * 128
+    assert (smem, regs) == (263936, 165632)
+    assert smem - regs == 2 * 128 * 384
+    assert (kernels._SMEM_LIMIT - regs) // 16384 >= 4 > (kernels._SMEM_LIMIT - smem) // 16384
+    assert kernels._selected_mma_smem(*args) == regs + 4 * 16384
 
 
 def test_refetch_bytes_at_qinco2_L_D768():

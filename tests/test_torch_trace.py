@@ -93,7 +93,10 @@ def test_kernel_spans_carry_the_column_passes(monkeypatch, D):
     out) on CPU tensors at qinco2-L's widths: each span carries the plan's
     ``d_passes`` and ``refetch_bytes`` (2 passes at D = 768, where nothing
     is read again at D = 128), and the counter ``kernels.refetch_bytes``
-    sums them over the launches."""
+    sums them over the launches; B2's span carries ``hidden`` (registers at
+    D = 128, on 128-pair tiles; shared memory on D = 768's column passes)
+    and the counter ``kernels.selected_hidden_regs`` counts the launches
+    that held it in registers."""
     monkeypatch.setattr(kernels, "_require_cuda", lambda t: None)
     monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     monkeypatch.setattr(kernels, "_launch", lambda *a, **kw: None)
@@ -118,6 +121,9 @@ def test_kernel_spans_carry_the_column_passes(monkeypatch, D):
     assert sel[0].ids["refetch_bytes"] == kernels.selected_refetch_bytes(
         plan, 16, D, 384, wfold=True, res=True)
     assert sel[0].ids["tile_pairs"] == plan.tm and sel[0].ids["cluster"] == plan.cluster
+    assert [s.ids["hidden"] for s in sel] == 2 * ["smem" if wide else "regs"]
+    assert plan.tm == (64 if wide else 128)
+    assert tracing.counters().get("kernels.selected_hidden_regs") == (0 if wide else 2)
     total = sum(s.ids["refetch_bytes"] for s in sel + reb)
     assert tracing.counters().get("kernels.refetch_bytes") == total
 
